@@ -1,11 +1,11 @@
-"""Detection model zoo — Deformable R-FCN (ResNet-101), inference
-(counterpart of ``mxnet_tpu/gluon/model_zoo/detection.py``).
+"""Detection model zoo — Deformable R-FCN (ResNet-101), inference and the
+training forward (counterpart of ``mxnet_tpu/gluon/model_zoo/detection.py``).
 
 Architecture (Deformable-ConvNets R-FCN recipe), built as in the JAX
 package, so that every block gets the same Gluon name:
 
 * ResNet-101 trunk: conv1 + res2..res4 at stride 16, BatchNorm on running
-  statistics;
+  statistics (frozen); no gradient reaches conv1 and res2 (``BlockGrad``);
 * res5 at dilation 2 and stride 1, its three 3×3 convs deformable
   (num_deformable_group=4);
 * RPN on res4; proposals by MultiProposal (greedy NMS, pre/post counts
@@ -15,7 +15,9 @@ package, so that every block gets the same Gluon name:
   from the offset maps (trans_std=0.1); class scores and deltas are the bin
   means.
 
-The training forward (targets, losses) is not ported yet.
+The training forward adds the RPN anchor targets and the sampled R-CNN
+targets (``ops/rcnn_targets.py``) and returns every loss ingredient; the
+losses and the optimizer step are ``mxnet_tpu_torch/train_fused.py``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import torch
 
 from ...context import full_fp32, resolve_device
 from ...ops import detection as ops_det
+from ...ops import elemwise as ops_elemwise
 from ...ops import matrix as ops_matrix
 from ...ops import nn as ops_nn
+from ...ops import rcnn_targets
 from .. import nn
 from ..block import HybridBlock
 
@@ -127,36 +131,64 @@ class _ResStage(HybridBlock):
 
 
 class DeformableRFCN(HybridBlock):
-    """Deformable R-FCN, inference.
+    """Deformable R-FCN: inference and the training forward.
 
-    ``net(data, im_info) -> (rois, cls_prob, bbox_pred)``: data (B, 3, H, W)
-    at ``image_shape``; im_info (B, 3) ``[height, width, scale]``; rois
-    (B·rpn_post_nms, 5) ``[batch_idx, x1, y1, x2, y2]``; cls_prob
-    (B·rpn_post_nms, classes + 1); bbox_pred (B·rpn_post_nms, 8).  The
-    forward computes in full fp32: it turns TF32 off for its convolutions and
-    matmuls and restores the caller's setting after (``context.full_fp32``).
+    Inference: ``net(data, im_info) -> (rois, cls_prob, bbox_pred)``: data
+    (B, 3, H, W) at ``image_shape``; im_info (B, 3) ``[height, width,
+    scale]``; rois (B·rpn_post_nms, 5) ``[batch_idx, x1, y1, x2, y2]``;
+    cls_prob (B·rpn_post_nms, classes + 1); bbox_pred (B·rpn_post_nms, 8).
+    It runs under ``torch.inference_mode()``.
+
+    Training: ``net(data, im_info, gt_boxes, nz_rpn, nz_prop)`` returns the
+    JAX model's 11 loss ingredients ``(rpn_cls, rpn_bbox, rpn_label, rpn_bt,
+    rpn_bw, rois, label, bbox_target, bbox_weight, cls_score, bbox_pred)``:
+    gt_boxes (B, max_gts, 5) rows ``[cls, x1, y1, x2, y2]`` padded with −1;
+    nz_rpn (B, Hf·Wf·A, 2) and nz_prop (B, rpn_post_nms + max_gts, 2) are
+    the uniform noise that drives the target subsampling (the caller draws
+    it).  The sampled rois (B·batch_rois) carry no gradient.
+
+    Both forwards compute in full fp32: they turn TF32 off for their
+    convolutions and matmuls and restore the caller's setting after
+    (``context.full_fp32``).
 
     Parameters
     ----------
     classes : number of foreground classes (COCO: 80).
     image_shape : static (H, W), divisible by 32.
     units : bottleneck counts per stage — (3, 4, 23, 3) = ResNet-101.
-    scales : anchor scales (ratios are 0.5, 1, 2).
+    pooled_size : PS-ROI bins per side (k).
+    scales, ratios : anchor scales and aspect ratios.
+    rpn_pre_nms, rpn_post_nms, rpn_min_size : MultiProposal's counts and
+        minimum box size (0 means the feature stride).
+    batch_rois, fg_fraction : sampled rois per image and their foreground
+        share (R-CNN targets).
+    rpn_batch : sampled anchors per image (RPN targets).
+    max_gts : ground-truth rows per image.
+    frozen_bn : BatchNorm on running statistics; ``False`` (batch
+        statistics) is not ported and raises.
     device : where the weights live; None means CUDA, and raises without it
         (pass ``"cpu"`` to run on the CPU).
     generator : ``torch.Generator`` for the random initial weights.
     """
 
     def __init__(self, classes=80, image_shape=(608, 1024),
-                 units=(3, 4, 23, 3), scales=(4, 8, 16, 32), rpn_pre_nms=6000,
-                 rpn_post_nms=300, device=None, generator=None, prefix=None):
+                 units=(3, 4, 23, 3), pooled_size=7, scales=(4, 8, 16, 32),
+                 ratios=(0.5, 1, 2), rpn_pre_nms=6000, rpn_post_nms=300,
+                 rpn_min_size=0, batch_rois=128, fg_fraction=0.25,
+                 rpn_batch=256, max_gts=100, frozen_bn=True, device=None,
+                 generator=None, prefix=None):
         super().__init__(prefix=prefix)
+        if not frozen_bn:
+            raise NotImplementedError(
+                "DeformableRFCN: frozen_bn=False (BatchNorm batch statistics) "
+                "is not ported yet; it is ROADMAP.md item A3 (BatchNorm batch "
+                "statistics)")
         self.device = resolve_device(device)
         self.classes = int(classes)
-        self.k = 7  # pooled size
+        self.k = int(pooled_size)
         self.stride = 16
         self.scales = tuple(scales)
-        self.ratios = (0.5, 1, 2)
+        self.ratios = tuple(ratios)
         self.num_anchors = len(self.scales) * len(self.ratios)
         self.image_shape = tuple(image_shape)
         H, W = self.image_shape
@@ -166,7 +198,11 @@ class DeformableRFCN(HybridBlock):
         self.feat_shape = (H // self.stride, W // self.stride)
         self.rpn_pre_nms = int(rpn_pre_nms)
         self.rpn_post_nms = int(rpn_post_nms)
-        self.rpn_min_size = self.stride
+        self.rpn_min_size = int(rpn_min_size) or self.stride
+        self.batch_rois = int(batch_rois)
+        self.fg_fraction = float(fg_fraction)
+        self.rpn_batch = int(rpn_batch)
+        self.max_gts = int(max_gts)
         k2 = self.k * self.k
         A = self.num_anchors
         dev = dict(device=self.device)
@@ -225,7 +261,9 @@ class DeformableRFCN(HybridBlock):
     # -- pieces -----------------------------------------------------------
 
     def _features(self, x):
-        c4 = self.res4(self.res3(self.res2(self.conv1(x))))
+        # conv1 and res2 are fixed: no gradient reaches them (BlockGrad)
+        c2 = ops_elemwise.block_grad(self.res2(self.conv1(x)))
+        c4 = self.res4(self.res3(c2))
         return c4, self.res5(c4)
 
     def _rpn(self, c4):
@@ -233,6 +271,7 @@ class DeformableRFCN(HybridBlock):
         return self.rpn_cls(t), self.rpn_bbox(t)
 
     def _proposals(self, rpn_cls, rpn_bbox, im_info):
+        """MultiProposal on the RPN outputs; the rois carry no gradient."""
         Hf, Wf = self.feat_shape
         # (B,2A,Hf,Wf) -> (B,2,A·Hf,Wf): softmax over background/foreground
         score = ops_matrix.reshape(rpn_cls, (0, 2, -1, 0))
@@ -268,32 +307,55 @@ class DeformableRFCN(HybridBlock):
         bbox_pred = ops_matrix.reshape(bbox, (0, 0, -1)).mean(dim=2)
         return cls_score, bbox_pred
 
+    def _targets(self, rois, gt_boxes, im_info, nz_rpn, nz_prop):
+        B = gt_boxes.shape[0]
+        Hf, Wf = self.feat_shape
+        rpn = rcnn_targets.rpn_anchor_target(
+            gt_boxes, im_info, nz_rpn, feat_height=Hf, feat_width=Wf,
+            feature_stride=self.stride, scales=self.scales, ratios=self.ratios,
+            batch_rois=self.rpn_batch, fg_fraction=0.5)
+        rcnn = rcnn_targets.proposal_target(
+            rois, gt_boxes, nz_prop, batch_images=B,
+            batch_rois=self.batch_rois * B, fg_fraction=self.fg_fraction)
+        return rpn, rcnn
+
     # -- forward ----------------------------------------------------------
 
-    @torch.inference_mode()
-    def forward(self, data, im_info, gt_boxes=None):
-        if gt_boxes is not None:
-            raise NotImplementedError(
-                "DeformableRFCN: the training forward (gt_boxes) is not "
-                "ported yet; it is the training slice, ROADMAP.md item A4 "
-                "(main-path train step)")
-        H, W = self.image_shape
-        if data.dim() != 4 or tuple(data.shape[1:]) != (3, H, W):
-            raise ValueError("data must be (B, 3, %d, %d), got %s"
-                             % (H, W, tuple(data.shape)))
-        if tuple(im_info.shape) != (data.shape[0], 3):
-            raise ValueError("im_info must be (B, 3), got %s"
-                             % (tuple(im_info.shape),))
-        if data.device != self.device or im_info.device != self.device:
+    def _check(self, name, t, shape):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("%s must be %s, got %s" % (name, tuple(shape),
+                                                         tuple(t.shape)))
+        if t.device != self.device:
             raise ValueError("inputs must be on the model's device %s"
                              % self.device)
+
+    def forward(self, data, im_info, gt_boxes=None, nz_rpn=None, nz_prop=None):
+        H, W = self.image_shape
+        B = data.shape[0]
+        self._check("data", data, (B, 3, H, W))
+        self._check("im_info", im_info, (B, 3))
+        if gt_boxes is None:
+            with torch.inference_mode(), full_fp32():
+                c4, c5 = self._features(data)
+                rpn_cls, rpn_bbox = self._rpn(c4)
+                rois = self._proposals(rpn_cls, rpn_bbox, im_info)
+                cls_score, bbox_pred = self._head(
+                    c5, rois, rois_per_image=self.rpn_post_nms)
+                return rois, ops_nn.softmax(cls_score, axis=-1), bbox_pred
+        Hf, Wf = self.feat_shape
+        self._check("gt_boxes", gt_boxes, (B, self.max_gts, 5))
+        self._check("nz_rpn", nz_rpn, (B, Hf * Wf * self.num_anchors, 2))
+        self._check("nz_prop", nz_prop, (B, self.rpn_post_nms + self.max_gts, 2))
         with full_fp32():
             c4, c5 = self._features(data)
             rpn_cls, rpn_bbox = self._rpn(c4)
             rois = self._proposals(rpn_cls, rpn_bbox, im_info)
-            cls_score, bbox_pred = self._head(c5, rois,
-                                              rois_per_image=self.rpn_post_nms)
-        return rois, ops_nn.softmax(cls_score, axis=-1), bbox_pred
+            (rpn_label, rpn_bt, rpn_bw), (rois_s, label, bbox_target, bbox_weight) = (
+                self._targets(rois, gt_boxes, im_info, nz_rpn, nz_prop))
+            cls_score, bbox_pred = self._head(c5, rois_s,
+                                              rois_per_image=self.batch_rois)
+        return (rpn_cls, rpn_bbox, rpn_label, rpn_bt, rpn_bw,
+                rois_s, label, bbox_target, bbox_weight, cls_score, bbox_pred)
 
 
 def rfcn_resnet101(classes=80, image_shape=(608, 1024), **kwargs):

@@ -1,4 +1,4 @@
-"""Detection operators of the Deformable R-FCN inference path (counterpart of
+"""Detection operators of the Deformable R-FCN path (counterpart of
 ``mxnet_tpu/ops/detection.py``): deformable convolution, deformable PS-ROI
 pooling and MultiProposal with greedy NMS.
 
@@ -7,7 +7,10 @@ Layouts are the JAX package's: NCHW maps, rois ``(R, 5)`` as
 coordinates are computed in fp32 in the JAX formulas' own order; the
 irregular inner loops run as the CUDA kernels of ``kernels.py`` on the card
 (their plain versions on the CPU), reached as ``kernels.<name>`` so that one
-forward can be observed from outside.  The JAX package's ``vmap`` over
+forward can be observed from outside.  The two deformable ops are
+differentiable: their kernels are ``torch.autograd.Function``s whose
+backward is a kernel too, and every clip on a sample coordinate keeps
+``jnp.clip``'s gradient (``_clip``).  The JAX package's ``vmap`` over
 images is a batch dimension here, and its ``lax.scan`` over PS-ROI bins is
 one kernel launch over all bins.
 """
@@ -23,6 +26,16 @@ from .nn import pair
 
 __all__ = ["deformable_convolution", "deformable_psroi_pooling",
            "generate_base_anchors", "multi_proposal"]
+
+
+def _clip(v, lo, hi):
+    """``jnp.clip(v, lo, hi)`` with JAX's gradient: ``min(max(v, lo), hi)``.
+    Where ``v`` ties with a bound, ``maximum`` and ``minimum`` pass half the
+    gradient, as JAX's do; ``torch.clamp`` would pass all of it.  The bounds
+    are made on ``v``'s device (a copy from the host would synchronise)."""
+    lo = torch.full((), lo, dtype=v.dtype, device=v.device)
+    hi = torch.full((), hi, dtype=v.dtype, device=v.device)
+    return torch.minimum(torch.maximum(v, lo), hi)
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +91,8 @@ def deformable_convolution(data, offset, weight, bias=None, *, kernel,
     sy = base_y + off[:, :, :, 0]
     sx = base_x + off[:, :, :, 1]
     live = (sy >= 0) & (sy < H) & (sx >= 0) & (sx < W)
-    syc = torch.clamp(sy, 0.0, H - 1.0).reshape(B * DG, N)
-    sxc = torch.clamp(sx, 0.0, W - 1.0).reshape(B * DG, N)
+    syc = _clip(sy, 0.0, H - 1.0).reshape(B * DG, N)
+    sxc = _clip(sx, 0.0, W - 1.0).reshape(B * DG, N)
     y0 = torch.floor(syc).to(torch.int32)
     x0 = torch.floor(sxc).to(torch.int32)
     y1 = torch.clamp(y0 + 1, max=H - 1)
@@ -89,7 +102,7 @@ def deformable_convolution(data, offset, weight, bias=None, *, kernel,
     lf = live.reshape(B * DG, N).to(f32)
     ft = (data.reshape(B, DG, cpg, H * W).transpose(2, 3)
           .reshape(B * DG, H * W, cpg).contiguous())
-    col = kernels.dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, (H, W))
+    col = kernels.DConvCol.apply(y0, y1, x0, x1, ly, lx, lf, ft, (H, W))
     col = (col.reshape(B, DG, K2, Ho * Wo, cpg).permute(0, 1, 4, 2, 3)
            .reshape(B, C * K2, Ho * Wo))
     out = torch.matmul(weight.reshape(Fo, C * K2), col).reshape(B, Fo, Ho, Wo)
@@ -187,8 +200,8 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
     sy, sx = torch.broadcast_tensors(sy, sx)
     # inclusive boundary: a sample at exactly −0.5 or size − 0.5 survives
     live = (sx >= -0.5) & (sx <= W - 0.5) & (sy >= -0.5) & (sy <= H - 0.5)
-    syc = torch.clamp(sy, 0.0, H - 1.0)
-    sxc = torch.clamp(sx, 0.0, W - 1.0)
+    syc = _clip(sy, 0.0, H - 1.0)
+    sxc = _clip(sx, 0.0, W - 1.0)
     y0 = torch.floor(syc).to(torch.int64)
     x0 = torch.floor(sxc).to(torch.int64)
     y1 = torch.clamp(y0 + 1, max=H - 1)
@@ -223,7 +236,7 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
           + lyb[..., None] * (to_bins(y1 + yoff)[..., None] == iota_y))
     xv = lfb[..., None] * ((1.0 - lxb)[..., None] * (to_bins(x0)[..., None] == iota_x)
                            + lxb[..., None] * (to_bins(x1)[..., None] == iota_x))
-    a = kernels.psroi_abuild(yv.contiguous(), xv.contiguous())  # (NB·R, rows, W)
+    a = kernels.PSROIABuild.apply(yv.contiguous(), xv.contiguous())  # (NB·R, rows, W)
 
     # per-bin planes of the position-sensitive map: (NB, B, hw, cpc)
     kb = torch.arange(K, device=dev).repeat_interleave(PH * PW)
@@ -356,6 +369,7 @@ def _proposals(scores_fg, deltas, im_info, anchors, stride, pre_nms, post_nms,
     return torch.gather(ordered[..., :4], 1, idx[..., None].expand(B, post_nms, 4))
 
 
+@torch.no_grad()
 def multi_proposal(cls_prob, bbox_pred, im_info, *, rpn_pre_nms_top_n=6000,
                    rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16,
                    scales=(4, 8, 16, 32), ratios=(0.5, 1, 2),
@@ -364,6 +378,8 @@ def multi_proposal(cls_prob, bbox_pred, im_info, *, rpn_pre_nms_top_n=6000,
     decode anchor deltas, clip, kill sub-min-size boxes, sort, greedy NMS
     (one ``nms_alive`` launch over the whole batch), emit exactly
     ``rpn_post_nms_top_n`` rois per image, padded by cycling the kept boxes.
+    The rois carry no gradient (the JAX model's ``BlockGrad``), so the op
+    runs under ``torch.no_grad()``.
 
     cls_prob (B, 2A, Hf, Wf), bbox_pred (B, 4A, Hf, Wf), im_info (B, 3)
     [height, width, scale].  Returns (B·post, 5) rois

@@ -13,8 +13,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel here has
   it launches its kernel, and nowhere else.
 
 Callers reach the wrappers as attributes of this module (``kernels.nms_alive``).
-The kernel sources are under ``csrc/``; ``_build.py`` compiles them at first
-use.
+The kernels with a backward (``dconv_col``, ``psroi_abuild``) are also
+``torch.autograd.Function``s (``DConvCol``, ``PSROIABuild``), the
+counterparts of the TPU kernels' custom VJPs.  The kernel sources are under
+``csrc/``; ``_build.py`` compiles them at first use.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ import torch
 from . import _build
 
 __all__ = ["nms_alive", "nms_alive_plain", "dconv_col", "dconv_col_plain",
-           "psroi_abuild", "psroi_abuild_plain", "Kernel", "KERNELS",
+           "dconv_col_bwd", "dconv_col_bwd_plain", "DConvCol",
+           "psroi_abuild", "psroi_abuild_plain", "psroi_abuild_bwd",
+           "psroi_abuild_bwd_plain", "PSROIABuild", "Kernel", "KERNELS",
            "reset_launches"]
 
 
@@ -200,19 +204,7 @@ def dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw):
     ly, lx (BG, N) f32 lerp factors; lf (BG, N) f32 live mask;
     ft (BG, H·W, C) f32.  Returns (BG, N, C) f32.
     """
-    H, W = (int(v) for v in hw)
-    _require(y0.dim() == 2, "dconv_col: factors must be (BG, N)")
-    BG, N = y0.shape
-    for name, t in (("y0", y0), ("y1", y1), ("x0", x0), ("x1", x1)):
-        _require(t.shape == (BG, N) and t.dtype == torch.int32,
-                 "dconv_col: %s must be int32 (BG, N)" % name)
-    for name, t in (("ly", ly), ("lx", lx), ("lf", lf)):
-        _require(t.shape == (BG, N) and t.dtype == torch.float32,
-                 "dconv_col: %s must be float32 (BG, N)" % name)
-    _require(ft.dim() == 3 and ft.shape[:2] == (BG, H * W),
-             "dconv_col: ft must be (BG, H*W, C)")
-    _require(ft.dtype == torch.float32, "dconv_col: ft must be float32 "
-             "(got %s; other dtypes are not ported)" % ft.dtype)
+    H, W, BG, N = _dconv_check("dconv_col", y0, y1, x0, x1, ly, lx, lf, ft, hw)
     dev = _same_device("dconv_col", y0, y1, x0, x1, ly, lx, lf, ft)
     if dev.type == "cpu":
         return dconv_col_plain(y0, y1, x0, x1, ly, lx, lf, ft, (H, W))
@@ -230,6 +222,99 @@ def dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw):
 
 
 dconv_col.launches = 0
+
+
+def _dconv_check(name, y0, y1, x0, x1, ly, lx, lf, ft, hw):
+    """Shared argument checks of the dconv forward and backward wrappers."""
+    H, W = (int(v) for v in hw)
+    _require(y0.dim() == 2, "%s: factors must be (BG, N)" % name)
+    BG, N = y0.shape
+    for k, t in (("y0", y0), ("y1", y1), ("x0", x0), ("x1", x1)):
+        _require(t.shape == (BG, N) and t.dtype == torch.int32,
+                 "%s: %s must be int32 (BG, N)" % (name, k))
+    for k, t in (("ly", ly), ("lx", lx), ("lf", lf)):
+        _require(t.shape == (BG, N) and t.dtype == torch.float32,
+                 "%s: %s must be float32 (BG, N)" % (name, k))
+    _require(ft.dim() == 3 and ft.shape[:2] == (BG, H * W),
+             "%s: ft must be (BG, H*W, C)" % name)
+    _require(ft.dtype == torch.float32, "%s: ft must be float32 "
+             "(got %s; other dtypes are not ported)" % (name, ft.dtype))
+    return H, W, BG, N
+
+
+def dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, hw):
+    """Plain version of :func:`dconv_col_bwd`: the one-hot formulation of the
+    TPU kernel (``_dconv_bwd_kernel_factory``): build A, take dA = g·ftᵀ,
+    reduce it against the one-hot masks, and d_ft = Aᵀ·g."""
+    H, W = hw
+    BG, N = y0.shape
+    iy = torch.arange(H, device=y0.device)
+    ix = torch.arange(W, device=y0.device)
+    e0y = (y0[..., None] == iy).to(ft.dtype)
+    e1y = (y1[..., None] == iy).to(ft.dtype)
+    e0x = (x0[..., None] == ix).to(ft.dtype)
+    e1x = (x1[..., None] == ix).to(ft.dtype)
+    yfac = (1.0 - ly)[..., None] * e0y + ly[..., None] * e1y            # (BG,N,H)
+    xfac = (1.0 - lx)[..., None] * e0x + lx[..., None] * e1x            # (BG,N,W)
+    da = torch.bmm(g, ft.transpose(1, 2)).reshape(BG, N, H, W)
+    da_x = (da * xfac[..., None, :]).sum(3)                              # (BG,N,H)
+    d_ly = (da_x * (e1y - e0y)).sum(2) * lf
+    d_lx = ((da * yfac[..., :, None]).sum(2) * (e1x - e0x)).sum(2) * lf
+    d_lf = (da_x * yfac).sum(2)
+    a = (yfac[..., :, None] * xfac[..., None, :] * lf[..., None, None]).reshape(BG, N, H * W)
+    d_ft = torch.bmm(a.transpose(1, 2), g)
+    return d_ly, d_lx, d_lf, d_ft
+
+
+def dconv_col_bwd(y0, y1, x0, x1, ly, lx, lf, ft, g, hw):
+    """Gradients of :func:`dconv_col` for the cotangent ``g`` (BG, N, C) of
+    col (``dconv_col_pallas``'s custom VJP): returns (d_ly, d_lx, d_lf) as
+    (BG, N) f32 and d_ft (BG, H·W, C) f32.  The int inputs get none."""
+    H, W, BG, N = _dconv_check("dconv_col_bwd", y0, y1, x0, x1, ly, lx, lf, ft, hw)
+    C = ft.shape[2]
+    _require(g.shape == (BG, N, C) and g.dtype == torch.float32,
+             "dconv_col_bwd: g must be float32 (BG, N, C)")
+    dev = _same_device("dconv_col_bwd", y0, y1, x0, x1, ly, lx, lf, ft, g)
+    if dev.type == "cpu":
+        return dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, (H, W))
+    _require(dev.type == "cuda", "dconv_col_bwd: unsupported device %s" % dev)
+    _contiguous("dconv_col_bwd", y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx,
+                lf=lf, ft=ft, g=g)
+    if BG * N == 0 or C == 0:  # nothing to launch: every sum is empty
+        z = torch.zeros((BG, N), dtype=torch.float32, device=dev)
+        return z, z.clone(), z.clone(), torch.zeros_like(ft)
+    rows = [torch.empty((BG, N), dtype=torch.float32, device=dev) for _ in range(3)]
+    d_ft = torch.empty_like(ft)  # zeroed by the entry, on the stream
+    _launch("dconv_col_bwd", dev, "mx_dconv_col_bwd", y0.data_ptr(),
+            y1.data_ptr(), x0.data_ptr(), x1.data_ptr(), ly.data_ptr(),
+            lx.data_ptr(), lf.data_ptr(), ft.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in rows), d_ft.data_ptr(), BG, N, H, W, C)
+    return (*rows, d_ft)
+
+
+dconv_col_bwd.launches = 0
+
+
+class DConvCol(torch.autograd.Function):
+    """:func:`dconv_col` with its gradient from :func:`dconv_col_bwd`
+    (counterpart of ``dconv_col_pallas``'s custom VJP): no gradient for the
+    int corner indices, and the backward launches only when one of ly, lx,
+    lf, ft needs a gradient.  Both directions look the wrappers up as module
+    attributes at call time, so a caller that wraps them sees every call."""
+
+    @staticmethod
+    def forward(ctx, y0, y1, x0, x1, ly, lx, lf, ft, hw):
+        ctx.hw = hw
+        ctx.save_for_backward(y0, y1, x0, x1, ly, lx, lf, ft)
+        return dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[4:8]
+        if not any(need):
+            return (None,) * 9
+        grads = dconv_col_bwd(*ctx.saved_tensors, g.contiguous(), ctx.hw)
+        return (None,) * 4 + tuple(d if n else None for d, n in zip(grads, need)) + (None,)
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +359,64 @@ def psroi_abuild(yv, xv):
 psroi_abuild.launches = 0
 
 
+def psroi_abuild_bwd_plain(yv, xv, g):
+    """Plain version of :func:`psroi_abuild_bwd`: each gradient as the
+    products of its formula summed over the contracted axis."""
+    dyv = (g[:, None, :, :] * xv[:, :, None, :]).sum(3)   # sum over w
+    dxv = (yv[:, :, :, None] * g[:, None, :, :]).sum(2)   # sum over h
+    return dyv, dxv
+
+
+def psroi_abuild_bwd(yv, xv, g):
+    """Gradients of :func:`psroi_abuild` for the cotangent ``g`` (N, H, W) of
+    A (``psroi_abuild_pallas``'s custom VJP): dyv[n, s, h] = Σ_w g[n, h, w]
+    xv[n, s, w] and dxv[n, s, w] = Σ_h yv[n, s, h] g[n, h, w], in fp32."""
+    _require(yv.dim() == 3 and xv.dim() == 3 and yv.shape[:2] == xv.shape[:2],
+             "psroi_abuild_bwd: yv must be (N, S, H) and xv (N, S, W)")
+    N, S, H = yv.shape
+    W = xv.shape[2]
+    _require(g.shape == (N, H, W), "psroi_abuild_bwd: g must be (N, H, W)")
+    _require(all(t.dtype == torch.float32 for t in (yv, xv, g)),
+             "psroi_abuild_bwd: yv, xv and g must be float32")
+    dev = _same_device("psroi_abuild_bwd", yv, xv, g)
+    if dev.type == "cpu":
+        return psroi_abuild_bwd_plain(yv, xv, g)
+    _require(dev.type == "cuda", "psroi_abuild_bwd: unsupported device %s" % dev)
+    _contiguous("psroi_abuild_bwd", yv=yv, xv=xv, g=g)
+    _require(((H + S) * (W + 1) + S * H) * 4 <= 227 * 1024,
+             "psroi_abuild_bwd: H, W and S too large for one block's shared memory")
+    dyv = torch.empty_like(yv)
+    dxv = torch.empty_like(xv)
+    if N == 0 or S == 0:
+        return dyv, dxv
+    _launch("psroi_abuild_bwd", dev, "mx_psroi_abuild_bwd", yv.data_ptr(),
+            xv.data_ptr(), g.data_ptr(), dyv.data_ptr(), dxv.data_ptr(),
+            N, S, H, W)
+    return dyv, dxv
+
+
+psroi_abuild_bwd.launches = 0
+
+
+class PSROIABuild(torch.autograd.Function):
+    """:func:`psroi_abuild` with its gradient from :func:`psroi_abuild_bwd`
+    (counterpart of ``psroi_abuild_pallas``'s custom VJP).  The wrappers are
+    looked up as module attributes at call time."""
+
+    @staticmethod
+    def forward(ctx, yv, xv):
+        ctx.save_for_backward(yv, xv)
+        return psroi_abuild(yv, xv)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        if not any(need):
+            return None, None
+        dyv, dxv = psroi_abuild_bwd(*ctx.saved_tensors, g.contiguous())
+        return (dyv if need[0] else None), (dxv if need[1] else None)
+
+
 class Kernel(NamedTuple):
     wrapper: Callable      # the launching entry; carries ``.launches``
     plain: Callable        # its plain PyTorch version
@@ -291,6 +434,12 @@ KERNELS = {
     "psroi_abuild": Kernel(psroi_abuild, psroi_abuild_plain,
                            "mxnet_tpu_torch/ops/csrc/psroi_abuild.cu",
                            "mxnet_tpu/ops/pallas_kernels.py:680"),
+    "dconv_col_bwd": Kernel(dconv_col_bwd, dconv_col_bwd_plain,
+                            "mxnet_tpu_torch/ops/csrc/dconv_col_bwd.cu",
+                            "mxnet_tpu/ops/pallas_kernels.py:960"),
+    "psroi_abuild_bwd": Kernel(psroi_abuild_bwd, psroi_abuild_bwd_plain,
+                               "mxnet_tpu_torch/ops/csrc/psroi_abuild_bwd.cu",
+                               "mxnet_tpu/ops/pallas_kernels.py:707"),
 }
 
 

@@ -1,4 +1,4 @@
-"""Neural-network operators of the inference path (counterpart of
+"""Neural-network operators of the Deformable R-FCN path (counterpart of
 ``mxnet_tpu/ops/nn.py``).  NCHW throughout; plain convolutions go to
 ``torch.nn.functional.conv2d``, as the JAX package leaves them to XLA."""
 from __future__ import annotations
@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["pair", "convolution", "batch_norm", "pooling", "activation",
-           "softmax"]
+           "softmax", "log_softmax"]
 
 
 def pair(v):
@@ -72,3 +72,9 @@ def activation(data, *, act_type):
 def softmax(data, *, axis=-1):
     """Softmax along ``axis`` (reference src/operator/nn/softmax.cc)."""
     return torch.softmax(data, dim=axis)
+
+
+def log_softmax(data, *, axis=-1):
+    """Log-softmax along ``axis`` (``mxnet_tpu/ops/nn.py log_softmax``, which
+    is ``jax.nn.log_softmax``: x − max − log Σ exp(x − max))."""
+    return torch.log_softmax(data, dim=axis)

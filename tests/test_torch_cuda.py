@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and their autograd Functions.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file imports
 no JAX, so that it runs on a machine without it; the repository's conftest
@@ -90,3 +91,93 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         kernels.nms_alive(torch.rand(1, 5, 4, device=cuda),
                           torch.ones(1, 5, dtype=torch.bool), thresh=0.5)
+
+
+def _dconv_args(rng, BG, N, H, W, C, dev):
+    """Factors with clamped rows and columns and dead rows (lf = 0)."""
+    y0 = rng.randint(0, H, (BG, N))
+    x0 = rng.randint(0, W, (BG, N))
+    y0[:, :20] = H - 1  # clamped corners: y1 == y0
+    x0[:, 10:30] = W - 1
+    ints = [y0, np.minimum(y0 + 1, H - 1), x0, np.minimum(x0 + 1, W - 1)]
+    t = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in ints]
+    t += [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(BG, N), rng.rand(BG, N), rng.rand(BG, N) > 0.2,
+        rng.randn(BG, H * W, C))]
+    return t
+
+
+# (BG, N, H, W, C): the res5 shapes of the train path at batch 1, then small
+# ones with C not a multiple of 32
+@pytest.mark.parametrize("shape", [(4, 21888, 38, 64, 128), (3, 500, 19, 23, 1),
+                                   (3, 500, 19, 23, 72)])
+def test_dconv_bwd_kernel_matches_plain(cuda, shape):
+    BG, N, H, W, C = shape
+    rng = np.random.RandomState(C)
+    t = _dconv_args(rng, BG, N, H, W, C, cuda)
+    g = torch.from_numpy(rng.randn(BG, N, C).astype(np.float32)).to(cuda)
+    before = kernels.dconv_col_bwd.launches
+    got = kernels.dconv_col_bwd(*t, g, (H, W))
+    assert kernels.dconv_col_bwd.launches == before + 1
+    ref = kernels.dconv_col_bwd_plain(*t, g, (H, W))
+    # sums over C in another order; d_ft sums by atomics in an order that
+    # changes from run to run: a tolerance, never bitwise
+    for name, a, b in zip(("d_ly", "d_lx", "d_lf", "d_ft"), got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()),
+                                   msg=lambda m, n=name: "%s: %s" % (n, m))
+    y0, y1, x0, x1, _, _, lf = t[:7]
+    assert bool((got[0][y0 == y1] == 0).all()) and bool((got[1][x0 == x1] == 0).all())
+    assert bool((got[0][lf == 0] == 0).all()) and bool((got[1][lf == 0] == 0).all())
+
+
+@pytest.mark.parametrize("shape", [(6272, 16, 38, 64), (7, 3, 5, 200), (20, 16, 300, 64)])
+def test_abuild_bwd_kernel_matches_plain(cuda, shape):
+    n, s, h, w = shape  # the last takes more than 48 KB of shared memory
+    rng = np.random.RandomState(n)
+    yv = torch.from_numpy(rng.rand(n, s, h).astype(np.float32)).to(cuda)
+    xv = torch.from_numpy(rng.rand(n, s, w).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(n, h, w).astype(np.float32)).to(cuda)
+    got = kernels.psroi_abuild_bwd(yv, xv, g)
+    ref = kernels.psroi_abuild_bwd_plain(yv, xv, g)
+    # sums of up to 300 fp32 products, fused multiply-adds in a fixed order
+    # against torch's reduction order
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    rng = np.random.RandomState(3)
+    t = _dconv_args(rng, 1, 40, 5, 6, 8, cuda)
+    with pytest.raises(ValueError, match="g must be float32"):
+        kernels.dconv_col_bwd(*t, torch.rand(1, 40, 8, device=cuda).double(), (5, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.dconv_col_bwd(*t, torch.rand(1, 8, 40, device=cuda).transpose(1, 2),
+                              (5, 6))
+    yv, xv = torch.rand(4, 2, 3, device=cuda), torch.rand(4, 2, 5, device=cuda)
+    with pytest.raises(ValueError, match="g must be"):
+        kernels.psroi_abuild_bwd(yv, xv, torch.rand(4, 5, 3, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        kernels.psroi_abuild_bwd(yv.double(), xv.double(),
+                                 torch.rand(4, 3, 5, device=cuda).double())
+
+
+def test_autograd_functions_launch_the_kernels_and_never_the_plain(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in kernels.KERNELS:
+        monkeypatch.setattr(kernels, name + "_plain", refuse)
+    rng = np.random.RandomState(4)
+    t = _dconv_args(rng, 2, 300, 9, 11, 40, cuda)
+    leaves = [a.requires_grad_() for a in t[4:]]
+    yv = torch.rand(50, 16, 9, device=cuda, requires_grad=True)
+    xv = torch.rand(50, 16, 11, device=cuda, requires_grad=True)
+    kernels.reset_launches()
+    col = kernels.DConvCol.apply(*t[:4], *leaves, (9, 11))
+    a = kernels.PSROIABuild.apply(yv, xv)
+    (col.square().sum() + a.square().sum()).backward()
+    torch.cuda.synchronize()
+    assert {n: k.wrapper.launches for n, k in kernels.KERNELS.items()} == {
+        "nms_alive": 0, "dconv_col": 1, "psroi_abuild": 1, "dconv_col_bwd": 1,
+        "psroi_abuild_bwd": 1}
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves + [yv, xv])

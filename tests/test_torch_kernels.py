@@ -127,15 +127,93 @@ def test_abuild_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
+def test_dconv_bwd_plain_matches_pallas_vjp():
+    """All four cotangents of the TPU kernel's custom VJP, clamped rows and
+    columns and dead rows included."""
+    rng = np.random.RandomState(1)
+    args, hw = _dconv_inputs(rng)
+    ints, flts = args[:4], args[4:]
+    g = rng.randn(*args[0].shape, args[7].shape[2]).astype(np.float32)
+    col, vjp = jax.vjp(
+        lambda ly, lx, lf, ft: dconv_col_pallas(*map(jnp.asarray, ints), ly, lx,
+                                                lf, ft, hw, True),
+        *map(jnp.asarray, flts))
+    ref = vjp(jnp.asarray(g))
+    got = kernels.dconv_col_bwd(*map(torch.from_numpy, args + (g,)), hw)
+    # fp32 sums over C (row gradients) and over the rows hitting one pixel
+    # (d_ft), in another order
+    for name, r, t in zip(("d_ly", "d_lx", "d_lf", "d_ft"), ref, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    d_ly, d_lx = got[0].numpy(), got[1].numpy()
+    y0, y1, x0, x1 = ints
+    assert (d_ly[y0 == y1] == 0).all() and (d_lx[x0 == x1] == 0).all()
+    assert (d_ly[y0 != y1] != 0).any() and (d_lx[x0 != x1] != 0).any()
+
+
+def test_abuild_bwd_plain_matches_pallas_vjp():
+    rng = np.random.RandomState(4)
+    yv = rng.rand(70, 16, 13).astype(np.float32)
+    xv = rng.rand(70, 16, 21).astype(np.float32)
+    g = rng.randn(70, 13, 21).astype(np.float32)
+    _, vjp = jax.vjp(lambda y, x: psroi_abuild_pallas(y, x, jnp.float32, True),
+                     jnp.asarray(yv), jnp.asarray(xv))
+    ref = vjp(jnp.asarray(g))
+    got = kernels.psroi_abuild_bwd(*map(torch.from_numpy, (yv, xv, g)))
+    # 13- and 21-term fp32 sums of products in another order
+    for r, t in zip(ref, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["dconv", "abuild"])
+def test_autograd_function_matches_autograd_through_plain(which):
+    """Each Function's backward (the plain backward on the CPU) against
+    autograd through the plain forward on the same cotangent."""
+    rng = np.random.RandomState(8)
+    if which == "dconv":
+        args, hw = _dconv_inputs(rng, BG=2, N=40, H=6, W=7, C=5)
+        t = [torch.from_numpy(a) for a in args]
+        leaves = [a.clone().requires_grad_() for a in t[4:]]
+        out_f = kernels.DConvCol.apply(*t[:4], *leaves, hw)
+        leaves_p = [a.clone().requires_grad_() for a in t[4:]]
+        out_p = kernels.dconv_col_plain(*t[:4], *leaves_p, hw)
+    else:
+        leaves = [torch.rand(9, 4, 6, requires_grad=True),
+                  torch.rand(9, 4, 11, requires_grad=True)]
+        out_f = kernels.PSROIABuild.apply(*leaves)
+        leaves_p = [a.detach().clone().requires_grad_() for a in leaves]
+        out_p = kernels.psroi_abuild_plain(*leaves_p)
+    g = torch.from_numpy(rng.randn(*out_f.shape).astype(np.float32))
+    got = torch.autograd.grad(out_f, leaves, g)
+    ref = torch.autograd.grad(out_p, leaves_p, g)
+    # the same sums, grouped differently by the two formulations
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_dconv_function_skips_the_backward_when_nothing_needs_it():
+    rng = np.random.RandomState(9)
+    args, hw = _dconv_inputs(rng, BG=1, N=10, H=4, W=5, C=3)
+    t = [torch.from_numpy(a) for a in args]
+    t[6] = t[6].requires_grad_()  # only lf: the backward runs, ft gets none
+    (kernels.DConvCol.apply(*t, hw).sum()).backward()
+    assert t[6].grad is not None and t[7].grad is None
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rng = np.random.RandomState(5)
     kernels.reset_launches()
     args, hw = _dconv_inputs(rng, BG=1, N=10, H=4, W=5, C=3)
-    kernels.dconv_col(*map(torch.from_numpy, args), hw)
+    t = list(map(torch.from_numpy, args))
+    kernels.dconv_col(*t, hw)
+    kernels.dconv_col_bwd(*t, torch.rand(1, 10, 3), hw)
     kernels.psroi_abuild(torch.rand(4, 2, 3), torch.rand(4, 2, 5))
+    kernels.psroi_abuild_bwd(torch.rand(4, 2, 3), torch.rand(4, 2, 5),
+                             torch.rand(4, 3, 5))
     kernels.nms_alive(torch.from_numpy(_clustered_boxes(rng, 1, 20)),
                       torch.ones(1, 20, dtype=torch.bool), thresh=0.5)
-    assert [k.wrapper.launches for k in kernels.KERNELS.values()] == [0, 0, 0]
+    assert len(kernels.KERNELS) == 5
+    assert [k.wrapper.launches for k in kernels.KERNELS.values()] == [0] * 5
 
 
 @pytest.mark.parametrize("bad", ["ft_dtype", "idx_dtype", "shape"])
@@ -151,6 +229,24 @@ def test_dconv_wrapper_rejects_what_the_kernel_does_not_take(bad):
         t[4] = t[4][:, :5]
     with pytest.raises(ValueError):
         kernels.dconv_col(*t, hw)
+
+
+@pytest.mark.parametrize("bad", ["g_dtype", "g_shape", "abuild_g_shape",
+                                 "abuild_dtype"])
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(bad):
+    rng = np.random.RandomState(6)
+    args, hw = _dconv_inputs(rng, BG=1, N=10, H=4, W=5, C=3)
+    t = list(map(torch.from_numpy, args))
+    yv, xv, ga = torch.rand(4, 2, 3), torch.rand(4, 2, 5), torch.rand(4, 3, 5)
+    with pytest.raises(ValueError):
+        if bad == "g_dtype":
+            kernels.dconv_col_bwd(*t, torch.rand(1, 10, 3, dtype=torch.float64), hw)
+        elif bad == "g_shape":
+            kernels.dconv_col_bwd(*t, torch.rand(1, 10, 4), hw)
+        elif bad == "abuild_g_shape":
+            kernels.psroi_abuild_bwd(yv, xv, ga[:, :2])
+        else:
+            kernels.psroi_abuild_bwd(yv.double(), xv.double(), ga.double())
 
 
 def test_build_hash_tracks_the_sources(monkeypatch, tmp_path):

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops import detection as jdet
@@ -101,6 +102,36 @@ def test_deformable_convolution(size, dg, cin):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("offsets", ["zero", "random"])
+@pytest.mark.parametrize("size,dg,cin", [(7, 2, 8), (28, 1, 8)],
+                         ids=["gather_path", "separable_path"])
+def test_deformable_convolution_gradients(size, dg, cin, offsets):
+    """Gradients of data, offset and weight against ``jax.grad``.  With zero
+    offsets the taps sample at integer points, many exactly on row or
+    column 0 (pad = dilation = 2, as in res5): ``jnp.clip`` passes half the
+    gradient at such a tie, ``torch.clamp`` would pass all of it."""
+    rng = np.random.RandomState(size + (offsets == "zero"))
+    B, F, K = 2, 6, 3
+    x = rng.randn(B, cin, size, size).astype(np.float32)
+    off = (np.zeros((B, 2 * dg * K * K, size, size), np.float32)
+           if offsets == "zero" else
+           (rng.randn(B, 2 * dg * K * K, size, size) * 1.5).astype(np.float32))
+    w = rng.randn(F, cin, K, K).astype(np.float32)
+    ct = rng.randn(B, F, size, size).astype(np.float32)
+    kw = dict(kernel=(K, K), num_filter=F, stride=(1, 1), dilate=(2, 2),
+              pad=(2, 2), num_deformable_group=dg, no_bias=True)
+    ref = jax.jit(jax.grad(
+        lambda *a: (jdet.deformable_convolution(*a, **kw) * ct).sum(),
+        argnums=(0, 1, 2)))(*map(jnp.asarray, (x, off, w)))
+    leaves = [_t(a).requires_grad_() for a in (x, off, w)]
+    (tdet.deformable_convolution(*leaves, **kw) * _t(ct)).sum().backward()
+    # bilinear samples and a 72-term fp32 product, summed in another order
+    for name, r, leaf in zip(("data", "offset", "weight"), ref, leaves):
+        r = np.asarray(r)
+        np.testing.assert_allclose(leaf.grad.numpy(), r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+
+
 def _rois(rng, B, per_image, extent_h, extent_w, grouped):
     x1 = rng.uniform(-10, extent_w - 10, (B * per_image,))
     y1 = rng.uniform(-10, extent_h - 10, (B * per_image,))
@@ -137,6 +168,35 @@ def test_deformable_psroi_pooling(grouped, with_trans, big):
         _t(data), _t(rois), None if trans is None else _t(trans), **kw).numpy()
     # means of ≤ spp² bilinear samples of N(0, 1) data, another order
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "general"])
+@pytest.mark.parametrize("big", [True, False], ids=["separable", "gather"])
+def test_deformable_psroi_pooling_gradients(grouped, big):
+    """Gradients of the score maps and the offsets against ``jax.grad``."""
+    rng = np.random.RandomState(10 + int(grouped) + 2 * int(big))
+    B, H, W = 2, 10, 12
+    k, spp = (7, 4) if big else (3, 2)
+    Rb, OD = (16, 8) if big else (3, 4)
+    data = rng.randn(B, OD * k * k, H, W).astype(np.float32)
+    rois = _rois(rng, B, Rb, 2 * H, 2 * W, grouped)
+    trans = (rng.randn(B * Rb, 2, k, k) * 0.5).astype(np.float32)
+    ct = rng.randn(B * Rb, OD, k, k).astype(np.float32)
+    kw = dict(spatial_scale=0.5, output_dim=OD, group_size=k, pooled_size=k,
+              part_size=k, sample_per_part=spp, trans_std=0.1,
+              rois_per_image=Rb if grouped else 0)
+    ref = jax.jit(jax.grad(
+        lambda d, t: (jdet.deformable_psroi_pooling(d, jnp.asarray(rois), t, **kw)
+                      * ct).sum(), argnums=(0, 1)))(jnp.asarray(data), jnp.asarray(trans))
+    leaves = [_t(data).requires_grad_(), _t(trans).requires_grad_()]
+    (tdet.deformable_psroi_pooling(leaves[0], _t(rois), leaves[1], **kw)
+     * _t(ct)).sum().backward()
+    # means of ≤ spp² bilinear samples and their coordinate derivatives,
+    # summed in another order
+    for name, r, leaf in zip(("data", "trans"), ref, leaves):
+        r = np.asarray(r)
+        np.testing.assert_allclose(leaf.grad.numpy(), r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
 
 
 def test_generate_base_anchors_is_the_reference_copy():

@@ -144,10 +144,9 @@ def test_load_jax_params_rejects_mismatches(pair):
         load_jax_params(net, bad)
 
 
-def test_training_forward_is_not_ported(pair):
-    _, tnet, _, x, info, _ = pair
-    with pytest.raises(NotImplementedError, match="training"):
-        tnet(_t(x), _t(info), torch.zeros(2, 8, 5))
+def test_batch_statistics_batchnorm_is_not_ported():
+    with pytest.raises(NotImplementedError, match="frozen_bn=False"):
+        DeformableRFCN(device="cpu", frozen_bn=False, **CFG)
 
 
 @pytest.mark.parametrize("make", [
@@ -208,6 +207,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    if "_build" not in f.parts)
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rfcn.py"]
     assert len(files) > 10
+    port = ROOT / "mxnet_tpu_torch"
+    for new in (port / "train_fused.py", port / "ops" / "elemwise.py",
+                port / "ops" / "rcnn_targets.py"):
+        assert new in files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
