@@ -22,9 +22,20 @@ Phases, in order; any failure exits non-zero:
    and each backward kernel during that train step, are captured; each kernel
    is held against its plain PyTorch version on them and timed beside it
    (and beside one library call where there is one);
-6. small input: the tiny configuration on the card against the same model on
+6. int8: int8 post-training quantization of ResNet-50 v2 (3x224x224, 1,000
+   classes, seeded He-scaled weights, BN moving mean 0 and variance 1):
+   naive calibration over 4 batches of 8, ``quantize_model`` with fc1 left
+   in fp32, then the int8 symbol bound and run at batch 1 and 32 beside the
+   fp32 symbol; outputs, launches per forward (one ``quantize_int8`` per int8
+   quantize node, one ``dequantize_int8`` per dequantize node of int8 input),
+   no host synchronisation inside the int8 forward, latencies and the top-1
+   agreement with fp32; the calls of one batch-32 forward, and an odd-sized
+   tensor with +-0, NaN and a zero range, hold the int8 pair bit for bit
+   against the plain versions;
+7. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
-   with the same weights and the same noise.
+   with the same weights and the same noise; and the CIFAR ResNet-8 int8
+   symbol with the same weights and calibration table on both devices.
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -51,6 +62,12 @@ TINY = dict(classes=3, image_shape=(64, 96), units=(1, 1, 1, 1), scales=(1, 2),
             rpn_pre_nms=200, rpn_post_nms=32, batch_rois=16, rpn_batch=32,
             max_gts=8)
 LR = 5e-4
+# upstream's imagenet_gen_qsym.py model: get_symbol(num_classes=1000,
+# num_layers=50, image_shape="3,224,224"), fc1 excluded from quantization
+INT8 = dict(num_classes=1000, num_layers=50, image_shape="3,224,224")
+INT8_CALIB = (4, 8)          # batches x images of naive calibration
+INT8_BATCHES = (1, 32)
+INT8_PAIR = ("quantize_int8", "dequantize_int8")
 
 
 def fail(msg):
@@ -144,7 +161,8 @@ def per_forward(net):
 
     n_dconv = sum(isinstance(m, DeformableConv2D) for m in net.modules())
     return {"nms_alive": 1, "dconv_col": n_dconv, "psroi_abuild": 3,
-            "dconv_col_bwd": 0, "psroi_abuild_bwd": 0}
+            "dconv_col_bwd": 0, "psroi_abuild_bwd": 0, "quantize_int8": 0,
+            "dequantize_int8": 0}
 
 
 def per_train_step(net):
@@ -345,6 +363,11 @@ def work(name, args, out):
         yv, xv, g = args
         N, S, H = yv.shape
         return nbytes(yv, xv, g, *out), 4 * N * S * H * xv.shape[2]
+    if name in INT8_PAIR:
+        # 4 bytes of float32 and 1 of int8 per element either way, and the
+        # range; quantize |x|, ·s, +0.5 and min per element, dequantize one ·
+        n = args[0].numel()
+        return 5 * n + 4, (4 if name == "quantize_int8" else 1) * n
     boxes, valid = args[0], args[1]
     # IoUs the greedy scan needs on this data: each survivor against every
     # earlier survivor, each suppressed box against at least one; ~12 flops each
@@ -377,10 +400,12 @@ def capture_calls(kernels, names, run):
 
 def compare(name, got, ref):
     """Max |kernel − plain| over the outputs; fail beyond the tolerance."""
-    if name == "nms_alive":
-        if not torch.equal(got, ref):
-            fail("nms_alive: %d mask entries differ from the plain version"
-                 % int((got != ref).sum()))
+    if name in ("nms_alive",) + INT8_PAIR:
+        # bit for bit (NaN cannot come out of either: quantize makes it 0,
+        # and the dequantize ranges are finite)
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            fail("%s: %d values differ from the plain version"
+                 % (name, int((got != ref).sum())))
         return 0.0
     err = 0.0
     for a, b in zip(*((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))):
@@ -400,40 +425,43 @@ def compare(name, got, ref):
     return err
 
 
-def phase_kernels(kernels, net, launches, train_launches, bwd_captured, dev):
-    """Each kernel against its plain version on the calls of a real run: an
-    inference forward for the forward kernels, and for the backward kernels
-    the calls ``phase_train`` recorded in one of its batch-1 steps."""
+def phase_kernels(kernels, net, launches, bwd_captured, dev):
+    """Each R-FCN kernel against its plain version on the calls of a real
+    run: an inference forward for the forward kernels, and for the backward
+    kernels the calls ``phase_train`` recorded in one of its batch-1 steps.
+    (The int8 pair's rows come from ``phase_int8``'s calls.)"""
     H, W = net.image_shape
     gen = torch.Generator().manual_seed(SEED + 3)
     data, im_info = make_request(gen, [[H, W, 1.0]], net.image_shape, dev)
-    fwd_names = [n for n in kernels.KERNELS if not n.endswith("_bwd")]
-    bwd_names = list(bwd_captured)
+    expect = per_forward(net)
+    fwd_names = [n for n, c in expect.items() if c]
     captured = capture_calls(kernels, fwd_names, lambda: net(data, im_info))
     captured.update(bwd_captured)
-    expect = dict(per_forward(net))
-    expect.update({n: per_train_step(net)[n] for n in bwd_names})
-
+    expect.update({n: per_train_step(net)[n] for n in bwd_captured})
     rows = []
-    for name, k in kernels.KERNELS.items():
+    for name in fwd_names + list(bwd_captured):
+        main = "train" if name in bwd_captured else "serve"
         with torch.no_grad():  # the captured backward inputs carry a graph
-            rows.append(kernel_row(name, k, captured[name], expect[name],
-                                   launches, train_launches, bwd_names))
+            rows.append(kernel_row(name, kernels.KERNELS[name], captured[name],
+                                   expect[name], launches, main))
     return rows
 
 
-def kernel_row(name, k, calls, expected, launches, train_launches, bwd_names):
-    """Hold one kernel against its plain version on its captured calls,
-    time both (and the library call), and return its JSON row."""
+def kernel_row(name, k, calls, expected, launches, main, extra_calls=(),
+               timed_call=0):
+    """Hold one kernel against its plain version on its captured calls (and
+    on ``extra_calls``, compared only), time both (and the library call) on
+    captured call ``timed_call``, and return its JSON row.  ``launches``
+    maps each path to its counts; ``main`` names the kernel's own path."""
     if len(calls) != expected:
         fail("captured %d %s calls, expected %d" % (len(calls), name, expected))
     err = 0.0
-    for args, kw in calls:
+    for args, kw in list(calls) + list(extra_calls):
         got = k.wrapper(*args, **kw)
         ref = k.plain(*args, **kw)
         torch.cuda.synchronize()
         err = max(err, compare(name, got, ref))
-    args, kw = calls[0]
+    args, kw = calls[timed_call]
     out = k.wrapper(*args, **kw)
     kernel_ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
     plain_ms = time_ms(lambda: k.plain(*args, **kw),
@@ -446,23 +474,29 @@ def kernel_row(name, k, calls, expected, launches, train_launches, bwd_names):
         yv, xv, g = args
         library_ms = time_ms(lambda: (torch.bmm(xv, g.transpose(1, 2)),
                                       torch.bmm(yv, g)), 20)
+    elif name == "dequantize_int8":
+        # one call with type promotion, the same function; quantize has no
+        # such call (torch.quantize_per_tensor rounds half to even)
+        q, real = args
+        scale = real / torch.full_like(real, 127.0)
+        library_ms = time_ms(lambda: torch.mul(q, scale), 20)
     bound_ms, bound_by = bound(*work(name, args, out))
     shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
-    # "launches" is the count on the kernel's own main path: the serve
-    # run for the forward kernels, the train run for the backward ones;
-    # "ms" and "kernel_ms" carry the one kernel time under both names
-    # that readers of this line look up
+    # "launches" is the count on the kernel's own main path (serve for the
+    # forward kernels, train for the backward ones, int8 for the pair);
+    # "ms" and "kernel_ms" carry the one kernel time under both names that
+    # readers of this line look up
     row = dict(
         name=name, route="cuda", source=k.source, replaces=k.replaces,
-        launches=(train_launches if name in bwd_names else launches)[name],
-        train_launches=train_launches[name], max_abs_err=err, ms=kernel_ms,
-        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=bound_ms, bound_by=bound_by)
+        launches=launches[main][name],
+        **{"%s_launches" % path: c[name] for path, c in launches.items()},
+        max_abs_err=err, ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     say("kernel %s %s: %.4f ms (plain %.4f ms%s), bound %.4f ms by %s, "
         "max_abs_err %g over %d calls" % (
             name, shapes, kernel_ms, plain_ms,
             "" if library_ms is None else ", library %.4f ms" % library_ms,
-            bound_ms, bound_by, err, len(calls)))
+            bound_ms, bound_by, err, len(calls) + len(extra_calls)))
     if name == "dconv_col":
         ly, lf = args[4], args[6]
         say("  dconv samples: %.3f off the integer grid, %.3f live" % (
@@ -556,6 +590,260 @@ def phase_small_train(dev):
         % ", ".join("%.5f" % v for v in got_parts.tolist()))
 
 
+def resnet_params(net, data_shape, gen, dev):
+    """He-scaled weights, BN gamma 1 and beta 0, moving mean 0 and variance
+    1, fc1's bias 0: the arg and aux dictionaries of ``net`` on the card."""
+    arg_shapes, _, aux_shapes = net.infer_shape(data=data_shape)
+    args = {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("_weight"):
+            v = torch.randn(s, generator=gen) * math.sqrt(2.0 / math.prod(s[1:]))
+        else:
+            v = torch.ones(s) if n.endswith("_gamma") else torch.zeros(s)
+        args[n] = v.to(dev)
+    aux = {n: (torch.ones(s) if n.endswith("_var") else torch.zeros(s)).to(dev)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def bind(sym, args, aux, batch, dev, image=(3, 224, 224)):
+    exe = sym.simple_bind(device=dev, grad_req="null", data=(batch,) + image)
+    for bound, params in ((exe.arg_dict, args), (exe.aux_dict, aux)):
+        for k, v in params.items():
+            bound[k].copy_(v)
+    return exe
+
+
+def int8_nodes(qsym, data_shape):
+    """(int8 quantize nodes, dequantize nodes whose input is int8) of the
+    rewritten graph, counted on its shape and dtype inference."""
+    from mxnet_tpu_torch.symbol.symbol import _infer_graph, _sym_out_name
+
+    metas = _infer_graph(qsym, {"data": data_shape})
+    nodes = [n for n in qsym._walk() if not n.is_var]
+    n_q = sum(n.op.name == "_contrib_quantize" and n.attrs.get("out_type") == "int8"
+              for n in nodes)
+    n_dq = sum(n.op.name == "_contrib_dequantize"
+               and metas[_sym_out_name(n.inputs[0])].dtype == torch.int8 for n in nodes)
+    return n_q, n_dq
+
+
+def only(got, **want):
+    """``got``'s keys with the counts of ``want`` and 0 elsewhere."""
+    return {k: want.get(k, 0) for k in got}
+
+
+def timed_forward(exe, data, reps=7):
+    """Median host-clock ms of ``reps`` forwards, each ended by a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.forward(data=data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+PROFILE_GROUPS = (  # first match wins, on the lower-cased kernel name
+    ("dequantize_int8", ("dequantize_int8_kernel",)),
+    ("quantize_int8", ("quantize_int8_kernel",)),
+    ("conv", ("fprop", "conv", "implicit")),
+    ("gemm", ("gemm", "cublas", "cutlass")),
+)
+
+
+def device_profile(exe, data, reps=3):
+    """Where a forward's device time goes: device busy ms and kernels per
+    forward, by group (the int8 pair, cuDNN convolutions, matrix products,
+    the rest: elementwise work, copies, reductions), from
+    ``torch.profiler``'s CUDA activity over ``reps`` forwards; the idle
+    share is 1 - busy / the traced wall.  "not measured" when the profiler
+    records no device time."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            exe.forward(data=data)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    groups, launches = {}, 0
+    for evt in prof.key_averages():
+        us = float(getattr(evt, "self_device_time_total", 0) or 0)
+        if us <= 0 or evt.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        name = evt.key.lower()
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + us / reps / 1e3
+        launches += evt.count / reps
+    busy = sum(groups.values())
+    if not busy:
+        return {"device_busy_ms": "not measured"}
+    return {"traced_wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kernels_per_forward": launches, "device_ms_by_group": groups}
+
+
+def phase_int8(kernels, dev, card):
+    """int8 post-training quantization of ResNet-50 v2 at full width: see
+    the module docstring.  Returns the path's launch counts, the int8
+    pair's calls captured in one batch-32 forward, and the latencies."""
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.models import resnet_symbol
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    with sym.NameManager():
+        net = resnet_symbol.get_symbol(**INT8)
+    image = tuple(int(v) for v in INT8["image_shape"].split(","))
+    args, aux = resnet_params(net, (1,) + image, gen, dev)
+    n_batches, per_batch = INT8_CALIB
+    calib = torch.randn((n_batches * per_batch,) + image, generator=gen).to(dev)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    qsym, qargs, qaux = quantize_model(
+        net, args, aux, device=dev, excluded_sym_names=["fc1"], calib_mode="naive",
+        calib_data=NDArrayIter(calib, batch_size=per_batch))
+    torch.cuda.synchronize()
+    qm_s = time.perf_counter() - t0
+    weight_launches = counts(kernels)
+    n_w = sum(n.endswith("_quantize") for n in qsym.list_arguments())
+    if weight_launches != only(weight_launches, quantize_int8=n_w):
+        fail("quantize_model launched %s, expected quantize_int8 once per "
+             "offline weight (%d) and nothing else" % (weight_launches, n_w))
+    calibrated = [n for n in qsym._walk()
+                  if not n.is_var and n.op.name == "_contrib_requantize"]
+    if not all(n.attrs.get("max_calib_range") is not None for n in calibrated):
+        fail("quantize_model left a requantize node uncalibrated")
+    n_q, n_dq = int8_nodes(qsym, (1,) + image)
+    ops = [n.op.name for n in qsym._walk() if not n.is_var]
+    say("int8: ResNet-%d v2 %s, %d classes, %.1f M parameters; quantize_model "
+        "(naive, %dx%d images, fc1 excluded) in %.2f s: %d quantized convs, "
+        "%d int8 quantize and %d int8-input dequantize nodes, %d weights "
+        "quantized offline with %d quantize_int8 launches" % (
+            INT8["num_layers"], image, INT8["num_classes"],
+            sum(v.numel() for v in args.values()) / 1e6,
+            n_batches, per_batch, qm_s, ops.count("_contrib_quantized_conv"),
+            n_q, n_dq, n_w, weight_launches["quantize_int8"]))
+
+    latencies = {}
+    captured = None
+    for batch in INT8_BATCHES:
+        fexe = bind(net, args, aux, batch, dev)
+        qexe = bind(qsym, qargs, qaux, batch, dev)
+        data = torch.randn((batch,) + image, generator=gen).to(dev)
+        ref = fexe.forward(data=data)[0]
+        qexe.forward(data=data)  # warm-up: cuBLAS and allocator set-up
+        torch.cuda.synchronize()
+        before = counts(kernels)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = qexe.forward(data=data)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        got = {n: c - before[n] for n, c in counts(kernels).items()}
+        if got != only(got, quantize_int8=n_q, dequantize_int8=n_dq):
+            fail("int8 forward at batch %d launched %s, expected quantize_int8 "
+                 "%d and dequantize_int8 %d" % (batch, got, n_q, n_dq))
+        for t, what in ((out, "int8"), (ref, "fp32")):
+            if tuple(t.shape) != (batch, INT8["num_classes"]):
+                fail("%s output has shape %s" % (what, tuple(t.shape)))
+            if not bool(torch.isfinite(t).all()):
+                fail("%s output has non-finite values" % what)
+            err = float((t.sum(1) - 1).abs().max())
+            if err > 1e-5:
+                fail("%s output rows sum to 1 only within %g" % (what, err))
+        agree = float((out.argmax(1) == ref.argmax(1)).float().mean())
+        q_ms, q_all = timed_forward(qexe, data)
+        f_ms, f_all = timed_forward(fexe, data)
+        latencies[batch] = dict(int8_ms=q_ms, fp32_ms=f_ms, top1_agreement=agree,
+                                int8_profile=device_profile(qexe, data),
+                                fp32_profile=device_profile(fexe, data))
+        say("int8 request: batch %d, int8 %.2f ms (%s), fp32 %.2f ms (%s) on %s; "
+            "top-1 int8 = fp32 on %.3f of the images; no host sync in the int8 "
+            "forward; launches %s" % (
+                batch, q_ms, ", ".join("%.2f" % t for t in q_all), f_ms,
+                ", ".join("%.2f" % t for t in f_all), card, agree,
+                {k: got[k] for k in INT8_PAIR}))
+        if batch == max(INT8_BATCHES):
+            captured = capture_calls(kernels, list(INT8_PAIR),
+                                     lambda: qexe.forward(data=data))
+        del fexe, qexe
+    launches = counts(kernels)
+    forwards = launches["dequantize_int8"] // n_dq
+    if forwards < 1 or launches != only(launches, quantize_int8=n_w + forwards * n_q,
+                        dequantize_int8=forwards * n_dq):
+        fail("int8 path launched %s over quantize_model and %d forwards"
+             % (launches, forwards))
+    say("int8 launches (quantize_model and %d int8 forwards): %s"
+        % (forwards, json.dumps(launches)))
+    say("int8 latency: %s" % json.dumps(latencies))
+    return launches, captured, {"quantize_int8": n_q, "dequantize_int8": n_dq}
+
+
+def int8_edge_calls(kernels, dev):
+    """An odd-sized tensor with +-0, NaN and infinities, its range, a zero
+    range, and all zeros under a zero range: compared only."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    x = torch.randn(1_000_003, generator=gen) * 3
+    x[:6] = torch.tensor([0.0, -0.0, math.nan, math.inf, -math.inf, 1e-30])
+    x = x.to(dev)
+    real = x[torch.isfinite(x)].abs().max()
+    zero = torch.zeros((), device=dev)
+    zeros = torch.zeros(1_000_003, device=dev)
+    q = kernels.quantize_int8_plain(x, real)
+    return {"quantize_int8": [((x, real), {}), ((x, zero), {}), ((zeros, zero), {})],
+            "dequantize_int8": [((q, real), {}), ((q, zero), {})]}
+
+
+def phase_small_int8(dev):
+    """CIFAR ResNet-8 v2: quantize_model with naive calibration on the CPU,
+    then the int8 symbol with the same weights and the same calibration
+    table on the card and on the CPU.  Every int8 and int32 value of every
+    node must be equal; the fc1 logits agree within 1e-6."""
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.models import resnet_symbol
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    with sym.NameManager():
+        net = resnet_symbol.get_symbol(10, 8, "3,32,32")
+    image = (3, 32, 32)
+    args, aux = resnet_params(net, (1,) + image, gen, cpu)
+    qsym, qargs, qaux = quantize_model(
+        net, args, aux, device="cpu", excluded_sym_names=["fc1"], calib_mode="naive",
+        calib_data=NDArrayIter(torch.randn((8,) + image, generator=gen), batch_size=4))
+    internals = qsym.get_internals()
+    data = torch.randn((4,) + image, generator=gen)
+    outs = []
+    for d in (cpu, dev):
+        exe = bind(internals, {k: v.to(d) for k, v in qargs.items()},
+                   {k: v.to(d) for k, v in qaux.items()}, 4, d, image)
+        outs.append([o.cpu() for o in exe.forward(data=data.to(d))])
+    n_int = 0
+    for name, ref, got in zip(internals.list_outputs(), *outs):
+        if ref.dtype in (torch.int8, torch.int32):
+            n_int += ref.numel()
+            if not torch.equal(got, ref):
+                fail("small int8: %s differs between the card and the CPU in %d "
+                     "values" % (name, int((got != ref).sum())))
+    names = internals.list_outputs()
+    ref, got = (o[names.index("fc1_output")] for o in outs)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6,
+                               msg=lambda m: "small int8 fc1 logits: %s" % m)
+    say("small input, int8: CIFAR ResNet-8 int8 on the card equals the CPU in "
+        "all %d int8/int32 values; fc1 logits within %.3g" % (
+            n_int, float((got - ref).abs().max())))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -569,13 +857,27 @@ def main():
     torch.cuda.set_device(dev)
     name = phase_device()
     phase_build()
-    net, gen, launches = phase_serve(kernels, dev)
+    net, gen, serve_launches = phase_serve(kernels, dev)
     train_launches, bwd_captured = phase_train(kernels, net, dev, name)
-    rows = phase_kernels(kernels, net, launches, train_launches, bwd_captured, dev)
-    del net
+    int8_launches, int8_captured, int8_expect = phase_int8(kernels, dev, name)
+    launches = {"serve": serve_launches, "train": train_launches,
+                "int8": int8_launches}
+    rows = phase_kernels(kernels, net, launches, bwd_captured, dev)
+    edge = int8_edge_calls(kernels, dev)
+    for pair_name in INT8_PAIR:
+        # timed on the call with the most elements: its 100 MB of float32
+        # exceed the 50 MB L2, which the 20 calls in a row would otherwise
+        # serve from
+        calls = int8_captured[pair_name]
+        largest = max(range(len(calls)), key=lambda i: calls[i][0][0].numel())
+        rows.append(kernel_row(pair_name, kernels.KERNELS[pair_name], calls,
+                               int8_expect[pair_name], launches, "int8",
+                               extra_calls=edge[pair_name], timed_call=largest))
+    del net, int8_captured, bwd_captured
     torch.cuda.empty_cache()
     phase_small_input(dev)
     phase_small_train(dev)
+    phase_small_int8(dev)
     say("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,14 +26,16 @@ __all__ = ["build_info", "check", "library", "source_hash"]
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 LIB_NAME = "libmxnet_tpu_torch_kernels.so"
-# no --use_fast_math: the NMS IoU must round exactly as the plain version,
-# and the dconv and A-build kernels compute in full fp32 as the TPU's did
+# no --use_fast_math: the NMS IoU and the int8 quantize must round exactly as
+# the plain versions, and the dconv and A-build kernels compute in full fp32
+# as the TPU's did
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry -> argtypes; every entry returns cudaGetLastError() as an int
 _SIGNATURES = {
     "mx_nms_alive": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
@@ -41,6 +43,8 @@ _SIGNATURES = {
     "mx_dconv_col_bwd": [_P] * 13 + [_I] * 5 + [_P],
     "mx_psroi_abuild": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mx_psroi_abuild_bwd": [_P] * 5 + [_I] * 4 + [_P],
+    "mx_quantize_int8": [_P, _P, _P, _L, _I, _P],
+    "mx_dequantize_int8": [_P, _P, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
-"""Elementwise operators of the training path (counterpart of
+"""Elementwise operators of the ported paths (counterpart of
 ``mxnet_tpu/ops/elemwise.py``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["smooth_l1", "block_grad"]
+from .registry import register
+
+__all__ = ["smooth_l1", "block_grad", "broadcast_add"]
 
 
 def smooth_l1(data, *, scalar=1.0):
@@ -20,3 +22,10 @@ def smooth_l1(data, *, scalar=1.0):
 def block_grad(data):
     """The value of ``data`` with no gradient (reference BlockGrad)."""
     return data.detach()
+
+
+@register("broadcast_add")
+def broadcast_add(lhs, rhs):
+    """Sum with NumPy broadcasting (reference
+    elemwise_binary_broadcast_op_basic.cc); ``Symbol.__add__`` builds it."""
+    return torch.add(lhs, rhs)

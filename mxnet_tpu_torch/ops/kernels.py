@@ -12,6 +12,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel here has
 * ``<wrapper>.launches``, a plain integer that the wrapper adds one to where
   it launches its kernel, and nowhere else.
 
+The int8 pair (``quantize_int8``, ``dequantize_int8``) also takes ``meta``
+tensors to its plain version, which computes nothing: the symbolic
+frontend's shape inference runs the operators on them.
+
 Callers reach the wrappers as attributes of this module (``kernels.nms_alive``).
 The kernels with a backward (``dconv_col``, ``psroi_abuild``) are also
 ``torch.autograd.Function``s (``DConvCol``, ``PSROIABuild``), the
@@ -29,8 +33,9 @@ from . import _build
 __all__ = ["nms_alive", "nms_alive_plain", "dconv_col", "dconv_col_plain",
            "dconv_col_bwd", "dconv_col_bwd_plain", "DConvCol",
            "psroi_abuild", "psroi_abuild_plain", "psroi_abuild_bwd",
-           "psroi_abuild_bwd_plain", "PSROIABuild", "Kernel", "KERNELS",
-           "reset_launches"]
+           "psroi_abuild_bwd_plain", "PSROIABuild", "quantize_int8",
+           "quantize_int8_plain", "dequantize_int8", "dequantize_int8_plain",
+           "Kernel", "KERNELS", "reset_launches"]
 
 
 def _require(cond, what):
@@ -417,6 +422,90 @@ class PSROIABuild(torch.autograd.Function):
         return (dyv if need[0] else None), (dxv if need[1] else None)
 
 
+# ---------------------------------------------------------------------------
+# symmetric int8 quantize / dequantize (replace pallas_kernels.py
+# quantize_int8_pallas and dequantize_int8_pallas)
+# ---------------------------------------------------------------------------
+
+
+def _fdiv(a, b):
+    """a / b for 0-d float32 tensors as one correctly rounded division, the
+    JAX op's.  A Python number is made a tensor on the other's device first:
+    PyTorch's CUDA division by a host scalar multiplies by its reciprocal,
+    and ``127.0 / t`` is ``t.reciprocal() * 127``; both round twice."""
+    if not torch.is_tensor(a):
+        a = torch.full((), a, dtype=torch.float32, device=b.device)
+    if not torch.is_tensor(b):
+        b = torch.full((), b, dtype=torch.float32, device=a.device)
+    return torch.div(a, b)
+
+
+def quantize_int8_plain(x, real_range):
+    """Plain version of :func:`quantize_int8`: the JAX op's expression
+    (``mxnet_tpu/ops/quantization.py quantize``, int8 branch) in its order,
+    with NaN made 0 before the cast as the JAX CPU path's cast does."""
+    scale = _fdiv(127.0, real_range)
+    q = torch.sign(x) * torch.clamp(torch.abs(x) * scale + 0.5, max=127.0)
+    return torch.where(q == q, q, 0.0).to(torch.int8)
+
+
+def _int8_pair_check(name, t, dtype, real_range):
+    _require(t.dtype == dtype, "%s: input must be %s, got %s" % (name, dtype, t.dtype))
+    _require(torch.is_tensor(real_range) and real_range.dim() == 0
+             and real_range.dtype == torch.float32,
+             "%s: real_range must be a 0-d float32 tensor" % name)
+    dev = _same_device(name, t, real_range)
+    if dev.type in ("cpu", "meta"):
+        return dev
+    _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
+    _contiguous(name, input=t)
+    return dev
+
+
+def quantize_int8(x, real_range):
+    """q = int8(sign(x)·min(|x|·127/range + 0.5, 127)), the cast truncating
+    toward zero (``quantize_int8_pallas``).  x float32 of any shape;
+    real_range a 0-d float32 tensor on x's device, read by the kernel on the
+    device.  Returns int8 of x's shape."""
+    dev = _int8_pair_check("quantize_int8", x, torch.float32, real_range)
+    if dev.type != "cuda":
+        return quantize_int8_plain(x, real_range)
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    if x.numel() == 0:
+        return q
+    vec = int(x.data_ptr() % 16 == 0 and q.data_ptr() % 4 == 0)
+    _launch("quantize_int8", dev, "mx_quantize_int8", x.data_ptr(),
+            real_range.data_ptr(), q.data_ptr(), x.numel(), vec)
+    return q
+
+
+quantize_int8.launches = 0
+
+
+def dequantize_int8_plain(q, real_range):
+    """Plain version of :func:`dequantize_int8`: ``f32(q)·(range/127)``."""
+    return q.to(torch.float32) * _fdiv(real_range, 127.0)
+
+
+def dequantize_int8(q, real_range):
+    """x = f32(q)·(range/127) (``dequantize_int8_pallas``).  q int8 of any
+    shape; real_range a 0-d float32 tensor on q's device.  Returns float32
+    of q's shape."""
+    dev = _int8_pair_check("dequantize_int8", q, torch.int8, real_range)
+    if dev.type != "cuda":
+        return dequantize_int8_plain(q, real_range)
+    x = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    if q.numel() == 0:
+        return x
+    vec = int(q.data_ptr() % 4 == 0 and x.data_ptr() % 16 == 0)
+    _launch("dequantize_int8", dev, "mx_dequantize_int8", q.data_ptr(),
+            real_range.data_ptr(), x.data_ptr(), q.numel(), vec)
+    return x
+
+
+dequantize_int8.launches = 0
+
+
 class Kernel(NamedTuple):
     wrapper: Callable      # the launching entry; carries ``.launches``
     plain: Callable        # its plain PyTorch version
@@ -440,6 +529,12 @@ KERNELS = {
     "psroi_abuild_bwd": Kernel(psroi_abuild_bwd, psroi_abuild_bwd_plain,
                                "mxnet_tpu_torch/ops/csrc/psroi_abuild_bwd.cu",
                                "mxnet_tpu/ops/pallas_kernels.py:707"),
+    "quantize_int8": Kernel(quantize_int8, quantize_int8_plain,
+                            "mxnet_tpu_torch/ops/csrc/quantize_int8.cu",
+                            "mxnet_tpu/ops/pallas_kernels.py:317"),
+    "dequantize_int8": Kernel(dequantize_int8, dequantize_int8_plain,
+                              "mxnet_tpu_torch/ops/csrc/quantize_int8.cu",
+                              "mxnet_tpu/ops/pallas_kernels.py:327"),
 }
 
 

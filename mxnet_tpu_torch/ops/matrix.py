@@ -3,7 +3,9 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["infer_reshape", "reshape"]
+from .registry import register
+
+__all__ = ["infer_reshape", "reshape", "flatten"]
 
 
 def infer_reshape(src_shape, target):
@@ -31,3 +33,9 @@ def infer_reshape(src_shape, target):
 def reshape(data, shape):
     """Reshape with the MXNet special codes (reference matrix_op.cc Reshape)."""
     return data.reshape(infer_reshape(data.shape, shape))
+
+
+@register("Flatten")
+def flatten(data):
+    """Collapse all axes but the first (reference matrix_op.cc Flatten)."""
+    return data.reshape((data.shape[0], -1) if data.dim() > 1 else (data.shape[0],))

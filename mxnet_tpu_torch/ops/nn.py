@@ -1,13 +1,23 @@
-"""Neural-network operators of the Deformable R-FCN path (counterpart of
-``mxnet_tpu/ops/nn.py``).  NCHW throughout; plain convolutions go to
-``torch.nn.functional.conv2d``, as the JAX package leaves them to XLA."""
+"""Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``): those
+of the Deformable R-FCN path and of the ResNet symbol.  NCHW throughout;
+plain convolutions and dense layers go to ``torch.nn.functional`` and
+``torch.matmul``, as the JAX package leaves them to XLA.
+
+The functions registered here (``@register``) are also the symbolic
+frontend's operators: their keyword-only parameters are the MXNet
+attributes, and the ``_*_params`` rules give the parameter shapes.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from .registry import register
+
 __all__ = ["pair", "convolution", "batch_norm", "pooling", "activation",
-           "softmax", "log_softmax"]
+           "softmax", "log_softmax", "fully_connected", "softmax_output"]
 
 
 def pair(v):
@@ -18,6 +28,45 @@ def pair(v):
     return v * 2 if len(v) == 1 else v
 
 
+def _fc_inputs(attrs):
+    return ["data", "weight"] if attrs.get("no_bias") else ["data", "weight", "bias"]
+
+
+def _fc_params(attrs, shapes):
+    nh = attrs["num_hidden"]
+    return {"weight": (nh, math.prod(shapes["data"][1:])), "bias": (nh,)}
+
+
+def _conv_params(attrs, shapes):
+    nf = attrs["num_filter"]
+    return {"weight": (nf, shapes["data"][1]) + pair(attrs["kernel"]), "bias": (nf,)}
+
+
+def _bn_params(attrs, shapes):
+    c = shapes["data"][1]
+    return {"gamma": (c,), "beta": (c,), "moving_mean": (c,), "moving_var": (c,)}
+
+
+def _softmax_output_label_shape(attrs, shapes):
+    return {"label": tuple(shapes["data"][:-1])}
+
+
+@register("FullyConnected", inputs_fn=_fc_inputs, infer_params=_fc_params)
+def fully_connected(data, weight, bias=None, *, num_hidden, no_bias=False):
+    """Dense layer (reference src/operator/nn/fully_connected.cc) on data
+    flattened to 2-D; weight (num_hidden, in_dim)."""
+    x = data.reshape(data.shape[0], -1)
+    if weight.shape != (num_hidden, x.shape[-1]):
+        raise ValueError("FullyConnected: weight %s does not match "
+                         "num_hidden=%d and input width %d"
+                         % (tuple(weight.shape), num_hidden, x.shape[-1]))
+    out = torch.matmul(x, weight.T)
+    if not no_bias and bias is not None:
+        out = out + bias
+    return out
+
+
+@register("Convolution", inputs_fn=_fc_inputs, infer_params=_conv_params)
 def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(1, 1),
                 dilate=(1, 1), pad=(0, 0), no_bias=False):
     """2-D convolution with stride, pad and dilation (reference
@@ -32,12 +81,14 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(1, 1),
                     dilation=pair(dilate))
 
 
+@register("BatchNorm", aux=("moving_mean", "moving_var"), infer_params=_bn_params)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
-               fix_gamma=True):
+               momentum=0.9, fix_gamma=True):
     """Batch normalization over channel axis 1 with the running statistics
     (reference src/operator/nn/batch_norm.cc, ``use_global_stats``): the
     inference branch of ``mxnet_tpu/ops/nn.py batch_norm``, in its
-    operation order.
+    operation order.  ``momentum`` only matters to the training branch,
+    which is not ported.
 
     The defaults are the op's own (``eps=1e-3``, ``fix_gamma=True``); the
     Gluon layer passes ``1e-5`` and ``False``.
@@ -51,18 +102,60 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
     return data * scale + shift
 
 
-def pooling(data, *, kernel, stride=None, pad=(0, 0)):
-    """Max pooling, ``valid`` convention (floor division; reference
-    src/operator/nn/pooling.cc, ``pool_type="max"``).  Padding never wins a
-    max, as in ``lax.reduce_window`` with a -inf init."""
+@register("Pooling")
+def pooling(data, *, kernel=(1, 1), pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True):
+    """Max or average pooling over NCHW (reference
+    src/operator/nn/pooling.cc, pool.h; ``mxnet_tpu/ops/nn.py pooling``).
+
+    ``stride`` defaults to 1 and ``pad`` to 0, as the op's.  The window is
+    padded explicitly, as ``lax.reduce_window`` pads: with −inf (the dtype's
+    least value for integers) for max and 0 for averages, on the right by the
+    extra amount the ``full`` (ceil) convention needs.  An average divides
+    the fp32 window sum by the window size or, without
+    ``count_include_pad``, by the count of unpadded elements; an integer
+    input is averaged in fp32 and cast back, as the reference does.
+    """
+    if pool_type not in ("max", "avg"):
+        raise NotImplementedError("Pooling: pool_type %r is not ported" % pool_type)
+    if global_pool:
+        if pool_type == "max":
+            return torch.amax(data, dim=(2, 3), keepdim=True)
+        return torch.mean(data.to(torch.float32), dim=(2, 3),
+                          keepdim=True).to(data.dtype)
     k = pair(kernel)
-    return F.max_pool2d(data, k, stride=pair(stride) if stride else k,
-                        padding=pair(pad), ceil_mode=False)
+    s = pair(stride) if stride is not None else (1, 1)
+    p = pair(pad) if pad is not None else (0, 0)
+    hi = list(p)
+    if pooling_convention == "full":
+        for i in range(2):
+            x = data.shape[2 + i]
+            out_sz = math.ceil((x + 2 * p[i] - k[i]) / s[i]) + 1
+            hi[i] = p[i] + max((out_sz - 1) * s[i] + k[i] - (x + 2 * p[i]), 0)
+    widths = (p[1], hi[1], p[0], hi[0])
+    if pool_type == "max":
+        floating = data.dtype.is_floating_point
+        lowest = -math.inf if floating else torch.iinfo(data.dtype).min
+        x = F.pad(data, widths, value=lowest)
+        if floating:
+            return F.max_pool2d(x, k, stride=s)
+        # max picks an input, so the fp32 detour is exact for 8/16-bit ints
+        return F.max_pool2d(x.to(torch.float32), k, stride=s).to(data.dtype)
+    x = F.pad(data.to(torch.float32), widths)
+    summed = F.avg_pool2d(x, k, stride=s, divisor_override=1)
+    if count_include_pad:
+        out = summed / float(math.prod(k))
+    else:
+        ones = F.pad(torch.ones_like(data, dtype=torch.float32), widths)
+        out = summed / F.avg_pool2d(ones, k, stride=s, divisor_override=1)
+    return out.to(data.dtype)
 
 
+@register("Activation")
 def activation(data, *, act_type):
-    """Activation (reference src/operator/nn/activation.cc); the path
-    uses ReLU only."""
+    """Activation (reference src/operator/nn/activation.cc); the ported
+    paths use ReLU only."""
     if act_type != "relu":
         raise NotImplementedError("Activation: only act_type='relu' is ported, "
                                   "got %r" % act_type)
@@ -78,3 +171,11 @@ def log_softmax(data, *, axis=-1):
     """Log-softmax along ``axis`` (``mxnet_tpu/ops/nn.py log_softmax``, which
     is ``jax.nn.log_softmax``: x − max − log Σ exp(x − max))."""
     return torch.log_softmax(data, dim=axis)
+
+
+@register("SoftmaxOutput", infer_params=_softmax_output_label_shape)
+def softmax_output(data, label):
+    """The inference forward of SoftmaxOutput (reference
+    src/operator/softmax_output.cc): softmax over the last axis.  ``label``
+    only enters the fused cross-entropy gradient, which is not ported."""
+    return torch.softmax(data, dim=-1)

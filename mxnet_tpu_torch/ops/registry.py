@@ -1,0 +1,80 @@
+"""Operator registry of the port (counterpart of ``mxnet_tpu/ops/registry.py``).
+
+An operator is a plain function on tensors whose positional parameters are
+its tensor inputs and whose keyword-only parameters are its attributes::
+
+    @register("Convolution", inputs_fn=_fc_inputs, infer_params=_conv_params)
+    def convolution(data, weight, bias=None, *, kernel, num_filter, ...):
+
+The symbolic frontend (``mxnet_tpu_torch.symbol``) builds its ``sym.*``
+functions from these entries, reads the tensor-argument names for
+``list_arguments``, and infers shapes by running the functions on ``meta``
+tensors.  Only the operators of the ported paths are registered: those of
+the ResNet symbol and of int8 post-training quantization.
+"""
+from __future__ import annotations
+
+import inspect
+
+__all__ = ["OpDef", "register", "get", "list_ops"]
+
+_REGISTRY = {}
+
+
+class OpDef:
+    """A registered operator.
+
+    ``name`` is the MXNet op name, ``fn`` the function, ``hint`` the stem of
+    its automatic node names, ``arg_names`` its tensor arguments in order
+    and ``defaults`` the defaults among them.  ``aux`` names the tensor
+    arguments that are auxiliary states (BatchNorm's moving statistics);
+    ``inputs_fn(attrs)`` lists the tensor arguments that these attributes
+    need (no bias under ``no_bias``); ``infer_params(attrs, shapes)`` gives
+    the shapes of parameter inputs from the known input shapes.
+    """
+
+    def __init__(self, name, fn, aux=(), inputs_fn=None, infer_params=None):
+        self.name = name
+        self.fn = fn
+        self.hint = name.lower().lstrip("_")
+        self.aux = tuple(aux)
+        self.inputs_fn = inputs_fn
+        self.infer_params = infer_params
+        positional = [p for p in inspect.signature(fn).parameters.values()
+                      if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
+        self.arg_names = [p.name for p in positional]
+        self.defaults = {p.name: p.default for p in positional
+                         if p.default is not inspect.Parameter.empty}
+        self.__doc__ = fn.__doc__
+
+    def __repr__(self):
+        return "OpDef(%s)" % self.name
+
+
+def register(name, aux=(), inputs_fn=None, infer_params=None):
+    """Decorator: register ``fn`` as operator ``name``.  The function itself
+    is returned unchanged."""
+
+    def _reg(fn):
+        if name in _REGISTRY:
+            raise ValueError("duplicate op registration: %s" % name)
+        _REGISTRY[name] = OpDef(name, fn, aux=aux, inputs_fn=inputs_fn,
+                                infer_params=infer_params)
+        return fn
+
+    return _reg
+
+
+def get(name):
+    """The OpDef of ``name``; KeyError for an op the port has not
+    registered."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError("Operator %r is not registered in mxnet_tpu_torch "
+                       "(only the ops of the ported paths are)" % name) from None
+
+
+def list_ops():
+    """Registered op names, sorted."""
+    return sorted(_REGISTRY)

@@ -1,0 +1,28 @@
+"""``sym`` — the symbolic graph frontend of the port (counterpart of
+``mxnet_tpu/symbol``).
+
+Every op registered in ``mxnet_tpu_torch.ops.registry`` gets a builder here
+(``sym.Convolution``, ``sym.BatchNorm``, ...), and every ``_contrib_<op>`` one
+in ``sym.contrib`` (``sym.contrib.quantize``).  ``simple_bind`` binds a graph
+on a device; see :mod:`mxnet_tpu_torch.executor`.
+"""
+import sys
+import types
+
+from ..ops import elemwise, matrix, nn, quantization, reduce  # noqa: F401  (register the ops)
+from ..ops import registry as _registry
+from .symbol import Group, NameManager, Symbol, Variable, _make_sym_op_func, var
+
+__all__ = ["Symbol", "Variable", "var", "Group", "NameManager", "contrib"]
+
+_self = sys.modules[__name__]
+contrib = types.ModuleType(__name__ + ".contrib")
+contrib.__doc__ = "Contrib operators as Symbol builders (``_contrib_<op>``)."
+for _name in _registry.list_ops():
+    _f = _make_sym_op_func(_registry.get(_name), _name)
+    if not hasattr(_self, _name):
+        setattr(_self, _name, _f)
+    if _name.startswith("_contrib_"):
+        setattr(contrib, _name[len("_contrib_"):], _f)
+sys.modules[contrib.__name__] = contrib
+del _f, _name

@@ -179,5 +179,104 @@ def test_autograd_functions_launch_the_kernels_and_never_the_plain(cuda, monkeyp
     torch.cuda.synchronize()
     assert {n: k.wrapper.launches for n, k in kernels.KERNELS.items()} == {
         "nms_alive": 0, "dconv_col": 1, "psroi_abuild": 1, "dconv_col_bwd": 1,
-        "psroi_abuild_bwd": 1}
+        "psroi_abuild_bwd": 1, "quantize_int8": 0, "dequantize_int8": 0}
     assert all(bool(torch.isfinite(x.grad).all()) for x in leaves + [yv, xv])
+
+
+def _edge_tensor(n, dev):
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n)) * 3
+    edge = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1e-30])
+    k = min(n, edge.numel())
+    x[:k] = edge[:k]
+    return x.to(dev)
+
+
+# bit for bit: odd sizes (scalar tail only, vectors and tail), a misaligned
+# start (scalar path), +-0, NaN, infinities, a saturating and a zero range
+@pytest.mark.parametrize("n", [1, 7, 4099, 1_000_003])
+def test_int8_pair_bit_identical_to_plain(cuda, n):
+    x = _edge_tensor(n + 1, cuda)
+    for t in (x[:n], x[1:]):
+        finite = t[torch.isfinite(t)]
+        for real in (finite.abs().max() if finite.numel() else torch.ones((), device=cuda),
+                     torch.tensor(0.5, device=cuda), torch.zeros((), device=cuda)):
+            q = kernels.quantize_int8(t, real)
+            assert torch.equal(q, kernels.quantize_int8_plain(t, real))
+            d = kernels.dequantize_int8(q, real)
+            assert torch.equal(d, kernels.dequantize_int8_plain(q, real))
+    zeros = torch.zeros(n, device=cuda)
+    assert not bool(kernels.quantize_int8(zeros, torch.zeros((), device=cuda)).any())
+
+
+def test_int8_pair_raises_on_what_the_kernels_do_not_take(cuda):
+    x = torch.rand(4, 6, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.quantize_int8(x.t(), x.max())
+    with pytest.raises(ValueError, match="one device"):
+        kernels.quantize_int8(x, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="int8"):
+        kernels.dequantize_int8(x, x.max())
+
+
+# bit for bit: the int32 accumulators of the im2col + _int_mm route on the
+# card against the CPU's int32 convolution and product
+@pytest.mark.parametrize("geom", [((2, 64, 56, 56), (64, 64, 3, 3), (2, 2), (1, 1)),
+                                  ((3, 3, 30, 30), (64, 3, 7, 7), (2, 2), (3, 3)),
+                                  ((1, 512, 7, 7), (2048, 512, 1, 1), (1, 1), (0, 0))])
+def test_int_conv_on_the_card_equals_the_cpu(cuda, geom):
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import quantization
+
+    xs, ws, stride, pad = geom
+    g = torch.Generator().manual_seed(sum(xs))
+    x = torch.randint(-127, 128, xs, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, ws, generator=g, dtype=torch.int8)
+    ref = F.conv2d(x.int(), w.int(), stride=stride, padding=pad)
+    got = quantization._int_conv(x.to(cuda), w.to(cuda), stride, pad, (1, 1))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), ref)
+    a = x.reshape(xs[0], -1)[:, : ws[1]].contiguous()
+    w2 = w.reshape(ws[0], -1)[:, : ws[1]].contiguous()
+    prod = quantization._int_matmul(a.to(cuda), w2.to(cuda))
+    assert torch.equal(prod.cpu(), a.int() @ w2.int().t())
+
+
+def test_int8_symbol_launches_the_pair_and_never_the_plain(cuda, monkeypatch):
+    """quantize_model and an int8 forward of the CIFAR ResNet-8 on the card:
+    one quantize_int8 per offline weight, then one per int8 quantize node
+    and one dequantize_int8 per dequantize node each forward."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.models import resnet_symbol
+
+    def refuse_cuda(plain):
+        """The plain version, for the meta tensors of shape inference only."""
+        def run(*a, **k):
+            if any(torch.is_tensor(t) and t.is_cuda for t in a):
+                raise AssertionError("a plain version ran on CUDA tensors")
+            return plain(*a, **k)
+        return run
+
+    for name in kernels.KERNELS:
+        monkeypatch.setattr(kernels, name + "_plain",
+                            refuse_cuda(getattr(kernels, name + "_plain")))
+    net = resnet_symbol.get_symbol(10, 8, "3,32,32")
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(2, 3, 32, 32))
+    g = torch.Generator().manual_seed(0)
+    args = {n: torch.randn(s, generator=g).to(cuda) * 0.2
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    aux = {n: (torch.ones(s) if n.endswith("_var") else torch.zeros(s)).to(cuda)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    kernels.reset_launches()
+    qsym, qargs, qaux = quantize_model(net, args, aux, device=cuda,
+                                       excluded_sym_names=["fc1"], calib_mode="none")
+    assert kernels.quantize_int8.launches == 10  # conv0 and 3 x 3 unit convs
+    exe = qsym.simple_bind(device=cuda, grad_req="null", data=(2, 3, 32, 32))
+    for bound, params in ((exe.arg_dict, qargs), (exe.aux_dict, qaux)):
+        for k, v in params.items():
+            bound[k].copy_(v)
+    out = exe.forward(data=torch.randn(2, 3, 32, 32, device=cuda))[0]
+    torch.cuda.synchronize()
+    assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
+    assert kernels.quantize_int8.launches == 10 + 7
+    assert kernels.dequantize_int8.launches == 10

@@ -212,8 +212,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                              torch.rand(4, 3, 5))
     kernels.nms_alive(torch.from_numpy(_clustered_boxes(rng, 1, 20)),
                       torch.ones(1, 20, dtype=torch.bool), thresh=0.5)
-    assert len(kernels.KERNELS) == 5
-    assert [k.wrapper.launches for k in kernels.KERNELS.values()] == [0] * 5
+    q = kernels.quantize_int8(torch.rand(7), torch.tensor(1.0))
+    kernels.dequantize_int8(q, torch.tensor(1.0))
+    assert len(kernels.KERNELS) == 7
+    assert [k.wrapper.launches for k in kernels.KERNELS.values()] == [0] * 7
 
 
 @pytest.mark.parametrize("bad", ["ft_dtype", "idx_dtype", "shape"])

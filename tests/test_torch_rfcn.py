@@ -149,21 +149,47 @@ def test_batch_statistics_batchnorm_is_not_ported():
         DeformableRFCN(device="cpu", frozen_bn=False, **CFG)
 
 
+def _gluon(make):
+    """The tensors of a Gluon entry point's block."""
+    return lambda **kw: list(make(**kw).state_dict().values())
+
+
+def _simple_bind(**kw):
+    from mxnet_tpu_torch.models import resnet_symbol
+
+    exe = resnet_symbol.get_symbol(10, 8, "3,32,32").simple_bind(
+        grad_req="null", data=(1, 3, 32, 32), **kw)
+    return exe.arg_arrays + exe.aux_arrays
+
+
+def _quantize_model(**kw):
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+
+    data = tsym.Variable("data")
+    net = tsym.FullyConnected(tsym.Flatten(data), num_hidden=3, name="fc")
+    params = {"fc_weight": np.ones((3, 4), np.float32), "fc_bias": np.zeros(3, np.float32)}
+    _, qargs, _ = quantize_model(net, params, {}, calib_mode="none", **kw)
+    return list(qargs.values())
+
+
 @pytest.mark.parametrize("make", [
-    lambda **kw: rfcn_resnet101(classes=3, image_shape=(64, 96), **kw),
-    lambda **kw: DeformableRFCN(**CFG, **kw),
-    lambda **kw: tnn.Conv2D(8, 3, in_channels=4, **kw),
-    lambda **kw: tnn.BatchNorm(in_channels=4, **kw),
-    lambda **kw: DeformableConv2D(8, 4, num_deformable_group=2, **kw),
+    _gluon(lambda **kw: rfcn_resnet101(classes=3, image_shape=(64, 96), **kw)),
+    _gluon(lambda **kw: DeformableRFCN(**CFG, **kw)),
+    _gluon(lambda **kw: tnn.Conv2D(8, 3, in_channels=4, **kw)),
+    _gluon(lambda **kw: tnn.BatchNorm(in_channels=4, **kw)),
+    _gluon(lambda **kw: DeformableConv2D(8, 4, num_deformable_group=2, **kw)),
+    _simple_bind,
+    _quantize_model,
 ], ids=["rfcn_resnet101", "DeformableRFCN", "Conv2D", "BatchNorm",
-        "DeformableConv2D"])
+        "DeformableConv2D", "simple_bind", "quantize_model"])
 def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make(device="cuda")
-    tensors = list(make(device="cpu").state_dict().values())
+    tensors = make(device="cpu")
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
@@ -209,9 +235,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     port = ROOT / "mxnet_tpu_torch"
     for new in (port / "train_fused.py", port / "ops" / "elemwise.py",
-                port / "ops" / "rcnn_targets.py"):
+                port / "ops" / "rcnn_targets.py", port / "ops" / "quantization.py",
+                port / "ops" / "registry.py", port / "ops" / "reduce.py",
+                port / "symbol" / "symbol.py", port / "symbol" / "__init__.py",
+                port / "executor.py", port / "io.py",
+                port / "contrib" / "quantization.py",
+                port / "models" / "resnet_symbol.py"):
         assert new in files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "mxnet_tpu"), (f, mod)
+            assert top not in ("jax", "jaxlib", "mxnet_tpu", "examples"), (f, mod)
