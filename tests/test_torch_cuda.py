@@ -69,9 +69,19 @@ def test_dconv_kernel_matches_plain(cuda, c):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(300, 16, 38, 64), (7, 3, 5, 200), (20, 16, 800, 64)])
+# (N, S, H, W): the serve path's rows; S = 3; more than 48 KB of shared memory
+# per roi; W not a multiple of 4; S = 1; H = 1; N = 1; the general path's
+# 76 rows; an N that is not a multiple of the rois per block; 200 columns
+# (several column groups per lane)
+ABUILD_SHAPES = [(300, 16, 38, 64), (7, 3, 5, 200), (20, 16, 800, 64),
+                 (33, 16, 38, 61), (20, 1, 38, 64), (20, 16, 1, 64),
+                 (1, 16, 38, 64), (300, 16, 76, 64), (6271, 16, 38, 64),
+                 (21, 16, 38, 200)]
+
+
+@pytest.mark.parametrize("shape", ABUILD_SHAPES)
 def test_abuild_kernel_matches_plain(cuda, shape):
-    n, s, h, w = shape  # the last takes more than 48 KB of shared memory
+    n, s, h, w = shape
     rng = np.random.RandomState(n)
     yv = torch.from_numpy(rng.rand(n, s, h).astype(np.float32)).to(cuda)
     xv = torch.from_numpy(rng.rand(n, s, w).astype(np.float32)).to(cuda)
@@ -130,9 +140,12 @@ def test_dconv_bwd_kernel_matches_plain(cuda, shape):
     assert bool((got[0][lf == 0] == 0).all()) and bool((got[1][lf == 0] == 0).all())
 
 
-@pytest.mark.parametrize("shape", [(6272, 16, 38, 64), (7, 3, 5, 200), (20, 16, 300, 64)])
+# the train path's call, S = 3, 300 rows (more than 48 KB of shared memory
+# per roi), then the forward's edge shapes
+@pytest.mark.parametrize("shape", [(6272, 16, 38, 64), (7, 3, 5, 200),
+                                   (20, 16, 300, 64)] + ABUILD_SHAPES[3:])
 def test_abuild_bwd_kernel_matches_plain(cuda, shape):
-    n, s, h, w = shape  # the last takes more than 48 KB of shared memory
+    n, s, h, w = shape
     rng = np.random.RandomState(n)
     yv = torch.from_numpy(rng.rand(n, s, h).astype(np.float32)).to(cuda)
     xv = torch.from_numpy(rng.rand(n, s, w).astype(np.float32)).to(cuda)
@@ -143,6 +156,19 @@ def test_abuild_bwd_kernel_matches_plain(cuda, shape):
     # against torch's reduction order
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(6272, 16, 38, 64), (33, 16, 38, 61)])
+def test_abuild_kernels_are_deterministic(cuda, shape):
+    """No atomics: two launches on the same input give the same bits."""
+    n, s, h, w = shape
+    rng = np.random.RandomState(5)
+    yv, xv, g = (torch.from_numpy(rng.randn(*d).astype(np.float32)).to(cuda)
+                 for d in ((n, s, h), (n, s, w), (n, h, w)))
+    assert torch.equal(kernels.psroi_abuild(yv, xv), kernels.psroi_abuild(yv, xv))
+    first = kernels.psroi_abuild_bwd(yv, xv, g)
+    second = kernels.psroi_abuild_bwd(yv, xv, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -116,14 +116,21 @@ def test_dconv_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
-def test_abuild_plain_matches_pallas_interpret():
+# (N, S, H, W): a small R-FCN-like shape, then the card kernels' edge shapes
+# S = 1 and W not a multiple of 4
+ABUILD_SHAPES = [(70, 16, 13, 21), (20, 1, 38, 64), (33, 16, 38, 61)]
+
+
+@pytest.mark.parametrize("shape", ABUILD_SHAPES)
+def test_abuild_plain_matches_pallas_interpret(shape):
+    n, s, h, w = shape
     rng = np.random.RandomState(3)
-    yv = rng.rand(70, 16, 13).astype(np.float32)
-    xv = rng.rand(70, 16, 21).astype(np.float32)
+    yv = rng.rand(n, s, h).astype(np.float32)
+    xv = rng.rand(n, s, w).astype(np.float32)
     ref = np.asarray(psroi_abuild_pallas(jnp.asarray(yv), jnp.asarray(xv),
                                          jnp.float32, True))
     got = kernels.psroi_abuild(torch.from_numpy(yv), torch.from_numpy(xv)).numpy()
-    # a 16-term fp32 sum of values in [0, 1) in another order
+    # an S-term fp32 sum (S <= 16) of values in [0, 1) in another order
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
@@ -151,16 +158,18 @@ def test_dconv_bwd_plain_matches_pallas_vjp():
     assert (d_ly[y0 != y1] != 0).any() and (d_lx[x0 != x1] != 0).any()
 
 
-def test_abuild_bwd_plain_matches_pallas_vjp():
+@pytest.mark.parametrize("shape", ABUILD_SHAPES)
+def test_abuild_bwd_plain_matches_pallas_vjp(shape):
+    n, s, h, w = shape
     rng = np.random.RandomState(4)
-    yv = rng.rand(70, 16, 13).astype(np.float32)
-    xv = rng.rand(70, 16, 21).astype(np.float32)
-    g = rng.randn(70, 13, 21).astype(np.float32)
+    yv = rng.rand(n, s, h).astype(np.float32)
+    xv = rng.rand(n, s, w).astype(np.float32)
+    g = rng.randn(n, h, w).astype(np.float32)
     _, vjp = jax.vjp(lambda y, x: psroi_abuild_pallas(y, x, jnp.float32, True),
                      jnp.asarray(yv), jnp.asarray(xv))
     ref = vjp(jnp.asarray(g))
     got = kernels.psroi_abuild_bwd(*map(torch.from_numpy, (yv, xv, g)))
-    # 13- and 21-term fp32 sums of products in another order
+    # fp32 sums of products over up to 64 terms, in another order
     for r, t in zip(ref, got):
         np.testing.assert_allclose(t.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
 
