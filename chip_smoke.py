@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero:
    rfcn_trans must get a non-zero gradient; the second warm-up step records
    the backward kernels' inputs;
 5. kernels: the inputs each forward kernel got during one inference forward,
-   and each backward kernel during that train step, are captured; each kernel
+   and each backward kernel (and NMS) during that train step, are captured;
+   NMS prints its words and survivors per call; each kernel
    is held against its plain PyTorch version on them and timed beside it
    (and beside one library call where there is one);
 6. int8: int8 post-training quantization of ResNet-50 v2 (3x224x224, 1,000
@@ -273,12 +274,13 @@ def phase_train(kernels, net, dev, card):
     # the second warm-up step also records the backward kernels' inputs,
     # which the kernels phase holds against the plain versions
     bwd_names = [n for n in kernels.KERNELS if n.endswith("_bwd")]
-    for i in range(2):
+    for i in range(2):  # (and the step's NMS call, compared beside the serve one)
         out = []
         run = lambda: out.append(checked_step(step1, inputs1, 1,
                                               "warm-up step %d" % (i + 1)))
         if i == 1:
-            captured = capture_calls(kernels, bwd_names, run)
+            captured = capture_calls(kernels, bwd_names + ["nms_alive"], run)
+            train_nms = captured.pop("nms_alive")
         else:
             run()
         ms, loss, parts = out[0]
@@ -312,7 +314,7 @@ def phase_train(kernels, net, dev, card):
             ms2, len(fixed), len(trunk),
             ", ".join("%.3g" % float(p.grad.abs().max()) for p in probes)))
     say("train launches (6 steps): %s" % json.dumps(launches))
-    return launches, captured
+    return launches, captured, train_nms
 
 
 def time_ms(fn, reps):
@@ -426,10 +428,11 @@ def compare(name, got, ref):
     return err
 
 
-def phase_kernels(kernels, net, launches, bwd_captured, dev):
+def phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev):
     """Each R-FCN kernel against its plain version on the calls of a real
     run: an inference forward for the forward kernels, and for the backward
-    kernels the calls ``phase_train`` recorded in one of its batch-1 steps.
+    kernels the calls ``phase_train`` recorded in one of its batch-1 steps
+    (NMS is compared on that step's call too, and timed on the serve call).
     (The int8 pair's rows come from ``phase_int8``'s calls.)"""
     H, W = net.image_shape
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -444,8 +447,23 @@ def phase_kernels(kernels, net, launches, bwd_captured, dev):
         main = "train" if name in bwd_captured else "serve"
         with torch.no_grad():  # the captured backward inputs carry a graph
             rows.append(kernel_row(name, kernels.KERNELS[name], captured[name],
-                                   expect[name], launches, main))
+                                   expect[name], launches, main,
+                                   extra_calls=train_nms if name == "nms_alive" else ()))
     return rows
+
+
+# why a kernel has no one-call PyTorch yardstick
+NO_LIBRARY_CALL = {
+    "nms_alive": "no single torch call does greedy NMS (torchvision.ops.nms is "
+                 "not part of PyTorch, and not installed)",
+    "dconv_col": "no single torch call samples a bilinear four-corner gather "
+                 "at per-row corners (grid_sample takes another layout and "
+                 "clamp rule)",
+    "dconv_col_bwd": "no single torch call computes the three masked row sums "
+                     "and the four-corner scatter together",
+    "quantize_int8": "torch.quantize_per_tensor rounds half to even, with a "
+                     "zero point",
+}
 
 
 def kernel_row(name, k, calls, expected, launches, main, extra_calls=(),
@@ -462,6 +480,10 @@ def kernel_row(name, k, calls, expected, launches, main, extra_calls=(),
         ref = k.plain(*args, **kw)
         torch.cuda.synchronize()
         err = max(err, compare(name, got, ref))
+        if name == "nms_alive":  # the serial chain's length and its work
+            say("  nms call %s: %d words, survivors %s of %s valid" % (
+                [tuple(a.shape) for a in args[:2]], -(-args[1].shape[1] // 64),
+                got.sum(1).tolist(), args[1].sum(1).tolist()))
     args, kw = calls[timed_call]
     out = k.wrapper(*args, **kw)
     kernel_ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
@@ -483,6 +505,8 @@ def kernel_row(name, k, calls, expected, launches, main, extra_calls=(),
         library_ms = time_ms(lambda: torch.mul(q, scale), 20)
     bound_ms, bound_by = bound(*work(name, args, out))
     shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+    if library_ms is None:
+        say("  %s library_ms: null, %s" % (name, NO_LIBRARY_CALL[name]))
     # "launches" is the count on the kernel's own main path (serve for the
     # forward kernels, train for the backward ones, int8 for the pair);
     # "ms" and "kernel_ms" carry the one kernel time under both names that
@@ -859,11 +883,11 @@ def main():
     name = phase_device()
     phase_build()
     net, gen, serve_launches = phase_serve(kernels, dev)
-    train_launches, bwd_captured = phase_train(kernels, net, dev, name)
+    train_launches, bwd_captured, train_nms = phase_train(kernels, net, dev, name)
     int8_launches, int8_captured, int8_expect = phase_int8(kernels, dev, name)
     launches = {"serve": serve_launches, "train": train_launches,
                 "int8": int8_launches}
-    rows = phase_kernels(kernels, net, launches, bwd_captured, dev)
+    rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
     edge = int8_edge_calls(kernels, dev)
     for pair_name in INT8_PAIR:
         # timed on the call with the most elements: its 100 MB of float32
@@ -874,7 +898,7 @@ def main():
         rows.append(kernel_row(pair_name, kernels.KERNELS[pair_name], calls,
                                int8_expect[pair_name], launches, "int8",
                                extra_calls=edge[pair_name], timed_call=largest))
-    del net, int8_captured, bwd_captured
+    del net, int8_captured, bwd_captured, train_nms
     torch.cuda.empty_cache()
     phase_small_input(dev)
     phase_small_train(dev)

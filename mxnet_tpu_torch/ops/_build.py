@@ -40,7 +40,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "mx_nms_alive": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "mx_dconv_col": [_P] * 9 + [_I] * 5 + [_P],
-    "mx_dconv_col_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    "mx_dconv_col_bwd": [_P] * 13 + [_I] * 10 + [_P],
     "mx_psroi_abuild": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mx_psroi_abuild_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "mx_quantize_int8": [_P, _P, _P, _L, _I, _P],

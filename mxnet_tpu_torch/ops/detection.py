@@ -43,40 +43,23 @@ def _clip(v, lo, hi):
 # ---------------------------------------------------------------------------
 
 
-def deformable_convolution(data, offset, weight, bias=None, *, kernel,
-                           num_filter, stride=(1, 1), dilate=(1, 1),
-                           pad=(0, 0), num_deformable_group=1, no_bias=False):
-    """Deformable convolution v1 (reference deformable_convolution-inl.h:99,
-    im2col at offset positions deformable_im2col.h:264-316).
-
-    Tap (i, j) at output (ho, wo) samples the input bilinearly at
-    ``(ho·stride − pad + i·dilate + Δy, wo·stride − pad + j·dilate + Δx)``
-    with Δ from ``offset`` (B, 2·DG·K², Ho, Wo), ``[.., 0]`` = Δy.  Samples
-    off the map are 0; positions past the last row or column snap to it.
-    The column is the ``dconv_col`` kernel at every size; the product with
-    the weight is one ``matmul``.
-    """
-    kh, kw = pair(kernel)
-    sh, sw = pair(stride)
-    dh, dw = pair(dilate)
-    ph, pw = pair(pad)
-    B, C, H, W = data.shape
-    Fo = int(num_filter)
-    DG = int(num_deformable_group)
-    Ho = (H + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
-    Wo = (W + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+def dconv_sample_factors(offset, hw, kernel, stride, dilate, pad):
+    """The bilinear sampling factors of a deformable convolution over an
+    (H, W) map: corner indices y0, y1, x0, x1 (int32), lerp factors ly, lx
+    and the live mask lf (float32), each (B·DG, K²·Ho·Wo) with the rows laid
+    out (tap, ho, wo).  ``offset`` is (B, 2·DG·K², Ho, Wo); the arguments
+    are pairs, as :func:`deformable_convolution` resolves them."""
+    H, W = hw
+    kh, kw = kernel
+    sh, sw = stride
+    dh, dw = dilate
+    ph, pw = pad
+    B, _, Ho, Wo = offset.shape
     K2 = kh * kw
+    DG = offset.shape[1] // (2 * K2)
     N = K2 * Ho * Wo
-    cpg = C // DG
-    dev = data.device
+    dev = offset.device
     f32 = torch.float32
-    if data.dtype != f32:
-        raise ValueError("DeformableConvolution: only float32 is ported, got %s"
-                         % data.dtype)
-    if tuple(offset.shape) != (B, 2 * DG * K2, Ho, Wo):
-        raise ValueError("DeformableConvolution: offset must be %s, got %s"
-                         % ((B, 2 * DG * K2, Ho, Wo), tuple(offset.shape)))
-
     # base sampling positions, tap order (i·kw + j) as in deformable_im2col
     ii = torch.arange(kh, device=dev)
     jj = torch.arange(kw, device=dev)
@@ -100,12 +83,54 @@ def deformable_convolution(data, offset, weight, bias=None, *, kernel,
     ly = syc - y0.to(f32)
     lx = sxc - x0.to(f32)
     lf = live.reshape(B * DG, N).to(f32)
+    return y0, y1, x0, x1, ly, lx, lf
+
+
+def deformable_convolution(data, offset, weight, bias=None, *, kernel,
+                           num_filter, stride=(1, 1), dilate=(1, 1),
+                           pad=(0, 0), num_deformable_group=1, no_bias=False):
+    """Deformable convolution v1 (reference deformable_convolution-inl.h:99,
+    im2col at offset positions deformable_im2col.h:264-316).
+
+    Tap (i, j) at output (ho, wo) samples the input bilinearly at
+    ``(ho·stride − pad + i·dilate + Δy, wo·stride − pad + j·dilate + Δx)``
+    with Δ from ``offset`` (B, 2·DG·K², Ho, Wo), ``[.., 0]`` = Δy.  Samples
+    off the map are 0; positions past the last row or column snap to it.
+    The column is the ``dconv_col`` kernel at every size; the product with
+    the weight is one batched product.
+    """
+    kh, kw = pair(kernel)
+    sh, sw = pair(stride)
+    dh, dw = pair(dilate)
+    ph, pw = pair(pad)
+    B, C, H, W = data.shape
+    Fo = int(num_filter)
+    DG = int(num_deformable_group)
+    Ho = (H + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
+    Wo = (W + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+    K2 = kh * kw
+    cpg = C // DG
+    f32 = torch.float32
+    if data.dtype != f32:
+        raise ValueError("DeformableConvolution: only float32 is ported, got %s"
+                         % data.dtype)
+    if tuple(offset.shape) != (B, 2 * DG * K2, Ho, Wo):
+        raise ValueError("DeformableConvolution: offset must be %s, got %s"
+                         % ((B, 2 * DG * K2, Ho, Wo), tuple(offset.shape)))
+
+    y0, y1, x0, x1, ly, lx, lf = dconv_sample_factors(
+        offset, (H, W), (kh, kw), (sh, sw), (dh, dw), (ph, pw))
     ft = (data.reshape(B, DG, cpg, H * W).transpose(2, 3)
           .reshape(B * DG, H * W, cpg).contiguous())
-    col = kernels.DConvCol.apply(y0, y1, x0, x1, ly, lx, lf, ft, (H, W))
+    col = kernels.DConvCol.apply(y0, y1, x0, x1, ly, lx, lf, ft, (H, W), (K2, Ho, Wo))
     col = (col.reshape(B, DG, K2, Ho * Wo, cpg).permute(0, 1, 4, 2, 3)
            .reshape(B, C * K2, Ho * Wo))
-    out = torch.matmul(weight.reshape(Fo, C * K2), col).reshape(B, Fo, Ho, Wo)
+    # a bmm with the weight expanded over the batch, not matmul: when the
+    # weight needs a gradient, matmul folds the batch into its rows, and the
+    # column's gradient then reaches DConvCol.backward only through a
+    # transposing copy; the bmm's arrives as a channel-major view of it
+    out = torch.bmm(weight.reshape(1, Fo, C * K2).expand(B, -1, -1), col)
+    out = out.reshape(B, Fo, Ho, Wo)
     if bias is not None and not no_bias:
         out = out + bias[None, :, None, None]
     return out

@@ -31,7 +31,7 @@ import torch
 from . import _build
 
 __all__ = ["nms_alive", "nms_alive_plain", "dconv_col", "dconv_col_plain",
-           "dconv_col_bwd", "dconv_col_bwd_plain", "DConvCol",
+           "dconv_col_bwd", "dconv_col_bwd_plain", "channel_major", "DConvCol",
            "psroi_abuild", "psroi_abuild_plain", "psroi_abuild_bwd",
            "psroi_abuild_bwd_plain", "PSROIABuild", "quantize_int8",
            "quantize_int8_plain", "dequantize_int8", "dequantize_int8_plain",
@@ -247,10 +247,11 @@ def _dconv_check(name, y0, y1, x0, x1, ly, lx, lf, ft, hw):
     return H, W, BG, N
 
 
-def dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, hw):
+def dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout=None):
     """Plain version of :func:`dconv_col_bwd`: the one-hot formulation of the
     TPU kernel (``_dconv_bwd_kernel_factory``): build A, take dA = g·ftᵀ,
-    reduce it against the one-hot masks, and d_ft = Aᵀ·g."""
+    reduce it against the one-hot masks, and d_ft = Aᵀ·g.  ``g`` may have
+    any strides; the rows' ``layout`` does not change the result."""
     H, W = hw
     BG, N = y0.shape
     iy = torch.arange(H, device=y0.device)
@@ -271,20 +272,42 @@ def dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, hw):
     return d_ly, d_lx, d_lf, d_ft
 
 
-def dconv_col_bwd(y0, y1, x0, x1, ly, lx, lf, ft, g, hw):
+def channel_major(g):
+    """Whether ``g`` (BG, N, C) is laid out channel-major, strides
+    (C·N, 1, N): a transposed view of a contiguous (BG, C, N) tensor, which
+    is how the autograd hands ``deformable_convolution``'s column gradient."""
+    return g.dim() == 3 and not g.is_contiguous() and g.transpose(1, 2).is_contiguous()
+
+
+def dconv_col_bwd(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout=None):
     """Gradients of :func:`dconv_col` for the cotangent ``g`` (BG, N, C) of
     col (``dconv_col_pallas``'s custom VJP): returns (d_ly, d_lx, d_lf) as
-    (BG, N) f32 and d_ft (BG, H·W, C) f32.  The int inputs get none."""
+    (BG, N) f32 and d_ft (BG, H·W, C) f32.  The int inputs get none.
+    ``g`` is contiguous or channel-major (:func:`channel_major`), as the
+    autograd hands it; the kernel reads either in place.  ``layout``
+    (K², Ho, Wo), where given, says the rows are laid out (tap, ho, wo), as
+    :func:`~mxnet_tpu_torch.ops.detection.deformable_convolution` builds
+    them: with a channel-major ``g`` the kernel then sums each tile's
+    corner terms in shared memory."""
     H, W, BG, N = _dconv_check("dconv_col_bwd", y0, y1, x0, x1, ly, lx, lf, ft, hw)
     C = ft.shape[2]
     _require(g.shape == (BG, N, C) and g.dtype == torch.float32,
              "dconv_col_bwd: g must be float32 (BG, N, C)")
+    _require(g.is_contiguous() or channel_major(g), "dconv_col_bwd: g must be "
+             "contiguous or channel-major (strides (C*N, 1, N)), got strides %s"
+             % (tuple(g.stride()),))
+    g_row, g_chan = (C, 1) if g.is_contiguous() else (1, N)
+    k2, ho, wo = (0, 0, 0) if layout is None else layout
+    _require(layout is None or (all(isinstance(v, int) and v > 0 for v in layout)
+                                and k2 * ho * wo == N),
+             "dconv_col_bwd: layout (K2, Ho, Wo) must be positive ints with "
+             "K2*Ho*Wo == N = %d, got %s" % (N, layout))
     dev = _same_device("dconv_col_bwd", y0, y1, x0, x1, ly, lx, lf, ft, g)
     if dev.type == "cpu":
         return dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, (H, W))
     _require(dev.type == "cuda", "dconv_col_bwd: unsupported device %s" % dev)
     _contiguous("dconv_col_bwd", y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx,
-                lf=lf, ft=ft, g=g)
+                lf=lf, ft=ft)
     if BG * N == 0 or C == 0:  # nothing to launch: every sum is empty
         z = torch.zeros((BG, N), dtype=torch.float32, device=dev)
         return z, z.clone(), z.clone(), torch.zeros_like(ft)
@@ -293,7 +316,8 @@ def dconv_col_bwd(y0, y1, x0, x1, ly, lx, lf, ft, g, hw):
     _launch("dconv_col_bwd", dev, "mx_dconv_col_bwd", y0.data_ptr(),
             y1.data_ptr(), x0.data_ptr(), x1.data_ptr(), ly.data_ptr(),
             lx.data_ptr(), lf.data_ptr(), ft.data_ptr(), g.data_ptr(),
-            *(t.data_ptr() for t in rows), d_ft.data_ptr(), BG, N, H, W, C)
+            *(t.data_ptr() for t in rows), d_ft.data_ptr(), BG, N, H, W, C,
+            g_row, g_chan, k2, ho, wo)
     return (*rows, d_ft)
 
 
@@ -304,22 +328,29 @@ class DConvCol(torch.autograd.Function):
     """:func:`dconv_col` with its gradient from :func:`dconv_col_bwd`
     (counterpart of ``dconv_col_pallas``'s custom VJP): no gradient for the
     int corner indices, and the backward launches only when one of ly, lx,
-    lf, ft needs a gradient.  Both directions look the wrappers up as module
-    attributes at call time, so a caller that wraps them sees every call."""
+    lf, ft needs a gradient.  A channel-major cotangent goes to the backward
+    as it comes, any other is made contiguous.  An optional last argument,
+    the rows' layout (K², Ho, Wo), goes to the backward wrapper.
+    Both directions look the wrappers up as module attributes at call time,
+    so a caller that wraps them sees every call."""
 
     @staticmethod
-    def forward(ctx, y0, y1, x0, x1, ly, lx, lf, ft, hw):
+    def forward(ctx, y0, y1, x0, x1, ly, lx, lf, ft, hw, *layout):
         ctx.hw = hw
+        ctx.layout = layout
         ctx.save_for_backward(y0, y1, x0, x1, ly, lx, lf, ft)
         return dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw)
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad[4:8]
+        rest = (None,) * (1 + len(ctx.layout))  # hw and the layout
         if not any(need):
-            return (None,) * 9
-        grads = dconv_col_bwd(*ctx.saved_tensors, g.contiguous(), ctx.hw)
-        return (None,) * 4 + tuple(d if n else None for d, n in zip(grads, need)) + (None,)
+            return (None,) * 8 + rest
+        if not channel_major(g):
+            g = g.contiguous()
+        grads = dconv_col_bwd(*ctx.saved_tensors, g, ctx.hw, *ctx.layout)
+        return (None,) * 4 + tuple(d if n else None for d, n in zip(grads, need)) + rest
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,39 @@ def test_nms_kernel_bit_identical_to_plain(cuda, n, plus_one):
         assert torch.equal(got, ref)  # survivor masks are bit-identical
 
 
+# N: ROADMAP B2's acceptance sizes (two-stage scan), then one above the
+# two-stage scan's shared-memory limit (~14,000: the first scan, by shape)
+@pytest.mark.parametrize("n", [100, 300, 700, 6000, 12000, 16000])
+def test_nms_kernel_batch_with_ids_and_valid_masks(cuda, n):
+    rng = np.random.RandomState(n + 1)
+    boxes = _boxes(rng, 2, n).to(cuda)
+    valid = torch.from_numpy(np.stack([rng.rand(n) > 0.1, rng.rand(n) > 0.5])).to(cuda)
+    ids = torch.from_numpy(rng.randint(0, 4, (2, n))).to(cuda)
+    for idv in (None, ids):
+        got = kernels.nms_alive(boxes, valid, idv, thresh=0.5, plus_one=1.0)
+        ref = kernels.nms_alive_plain(boxes, valid, idv, thresh=0.5, plus_one=1.0)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("case", ["all_survive", "first_kills_all"])
+@pytest.mark.parametrize("n", [700, 6000])
+def test_nms_kernel_extreme_survivor_counts(cuda, case, n):
+    rng = np.random.RandomState(7)
+    if case == "all_survive":  # an IoU never exceeds 1
+        boxes, thresh = _boxes(rng, 1, n), 1.0
+    else:  # one box, repeated with jitter: the first kills every other
+        base = np.array([100.0, 100.0, 300.0, 300.0])
+        boxes = torch.from_numpy((base + rng.uniform(0, 1, (1, n, 4))).astype(np.float32))
+        thresh = 0.7
+    boxes = boxes.to(cuda)
+    valid = torch.ones((1, n), dtype=torch.bool, device=cuda)
+    got = kernels.nms_alive(boxes, valid, thresh=thresh, plus_one=1.0)
+    assert torch.equal(got, kernels.nms_alive_plain(boxes, valid, thresh=thresh,
+                                                    plus_one=1.0))
+    want = n if case == "all_survive" else 1
+    assert int(got.sum()) == want
+
+
 @pytest.mark.parametrize("c", [1, 72, 128])
 def test_dconv_kernel_matches_plain(cuda, c):
     rng = np.random.RandomState(c)
@@ -117,19 +150,7 @@ def _dconv_args(rng, BG, N, H, W, C, dev):
     return t
 
 
-# (BG, N, H, W, C): the res5 shapes of the train path at batch 1, then small
-# ones with C not a multiple of 32
-@pytest.mark.parametrize("shape", [(4, 21888, 38, 64, 128), (3, 500, 19, 23, 1),
-                                   (3, 500, 19, 23, 72)])
-def test_dconv_bwd_kernel_matches_plain(cuda, shape):
-    BG, N, H, W, C = shape
-    rng = np.random.RandomState(C)
-    t = _dconv_args(rng, BG, N, H, W, C, cuda)
-    g = torch.from_numpy(rng.randn(BG, N, C).astype(np.float32)).to(cuda)
-    before = kernels.dconv_col_bwd.launches
-    got = kernels.dconv_col_bwd(*t, g, (H, W))
-    assert kernels.dconv_col_bwd.launches == before + 1
-    ref = kernels.dconv_col_bwd_plain(*t, g, (H, W))
+def _dconv_bwd_check(got, ref, t):
     # sums over C in another order; d_ft sums by atomics in an order that
     # changes from run to run: a tolerance, never bitwise
     for name, a, b in zip(("d_ly", "d_lx", "d_lf", "d_ft"), got, ref):
@@ -138,6 +159,112 @@ def test_dconv_bwd_kernel_matches_plain(cuda, shape):
     y0, y1, x0, x1, _, _, lf = t[:7]
     assert bool((got[0][y0 == y1] == 0).all()) and bool((got[1][x0 == x1] == 0).all())
     assert bool((got[0][lf == 0] == 0).all()) and bool((got[1][lf == 0] == 0).all())
+
+
+# (BG, N, H, W, C): the res5 shapes of the train path at batch 1, then small
+# ones with C not a multiple of 32, more than 128 channels, and many channels
+# (C = 1900), each with g in both layouts the kernel reads
+@pytest.mark.parametrize("shape", [(4, 21888, 38, 64, 128), (3, 500, 19, 23, 1),
+                                   (3, 500, 19, 23, 72), (3, 500, 19, 23, 200),
+                                   (1, 70, 5, 6, 1900)])
+@pytest.mark.parametrize("g_layout", ["contiguous", "channel_major"])
+def test_dconv_bwd_kernel_matches_plain(cuda, shape, g_layout):
+    BG, N, H, W, C = shape
+    rng = np.random.RandomState(C)
+    t = _dconv_args(rng, BG, N, H, W, C, cuda)
+    g = torch.from_numpy(rng.randn(BG, N, C).astype(np.float32)).to(cuda)
+    if g_layout == "channel_major":
+        g = g.transpose(1, 2).contiguous().transpose(1, 2)
+    before = kernels.dconv_col_bwd.launches
+    got = kernels.dconv_col_bwd(*t, g, (H, W))
+    assert kernels.dconv_col_bwd.launches == before + 1
+    _dconv_bwd_check(got, kernels.dconv_col_bwd_plain(*t, g, (H, W)), t)
+
+
+def _dconv_path_args(rng, B, DG, H, W, C, offset_px, dev, k=3):
+    """Factors built as deformable_convolution builds them (res5's k x k taps
+    with k = 3, dilation 2, the output the input's size, rows laid out (tap,
+    ho, wo)) for offsets uniform in +-offset_px pixels, and ft."""
+    from mxnet_tpu_torch.ops.detection import dconv_sample_factors
+
+    off = rng.uniform(-offset_px, offset_px, (B, 2 * DG * k * k, H, W)).astype(np.float32)
+    factors = dconv_sample_factors(torch.from_numpy(off).to(dev), (H, W), (k, k),
+                                   (1, 1), (2, 2), (k - 1, k - 1))
+    ft = torch.from_numpy(rng.randn(B * DG, H * W, C).astype(np.float32)).to(dev)
+    return list(factors) + [ft]
+
+
+# (B, DG, H, W, C, offset px): the train path's res5 call at batch 1 with
+# small offsets, with +-3 pixels (some tiles' windows too large for shared
+# memory) and with +-20 pixels (all of them); small maps whose tiles pass
+# the map's edge, with C not a multiple of 32 (the last chunk of channels in
+# part; C = 33: a chunk of one), more than 128 channels and C not a multiple
+# of 4.  Offsets of a pixel or more make neighbouring rows' corners meet on
+# a pixel.
+@pytest.mark.parametrize("shape", [(1, 4, 38, 64, 128, 1.5), (1, 4, 38, 64, 128, 3.0),
+                                   (1, 4, 38, 64, 128, 20.0), (2, 1, 9, 11, 40, 2.0),
+                                   (1, 2, 19, 23, 16, 0.7), (1, 1, 9, 11, 200, 1.0),
+                                   (1, 1, 9, 11, 6, 1.0), (1, 1, 10, 13, 33, 2.0)])
+@pytest.mark.parametrize("g_layout", ["contiguous", "channel_major"])
+@pytest.mark.parametrize("with_layout", [True, False])
+def test_dconv_bwd_kernel_on_deformable_rows_matches_plain(cuda, shape, g_layout,
+                                                           with_layout):
+    """With the layout, a channel-major g and C a multiple of 4 the tiled
+    design runs; every other call takes the row kernel."""
+    B, DG, H, W, C, px = shape
+    rng = np.random.RandomState(H + C)
+    t = _dconv_path_args(rng, B, DG, H, W, C, px, cuda)
+    N = t[0].shape[1]
+    g = torch.from_numpy(rng.randn(B * DG, C, N).astype(np.float32)).to(cuda)
+    g = g.transpose(1, 2)
+    if g_layout == "contiguous":
+        g = g.contiguous()
+    layout = (9, H, W) if with_layout else None
+    before = kernels.dconv_col_bwd.launches
+    got = kernels.dconv_col_bwd(*t, g, (H, W), layout)
+    assert kernels.dconv_col_bwd.launches == before + 1
+    _dconv_bwd_check(got, kernels.dconv_col_bwd_plain(*t, g, (H, W)), t)
+
+
+# a 5 x 5 kernel: more taps than the tiled design holds, the row kernel
+# takes the call whatever its layout
+@pytest.mark.parametrize("with_layout", [True, False])
+def test_dconv_bwd_kernel_with_25_taps_matches_plain(cuda, with_layout):
+    rng = np.random.RandomState(25)
+    H, W, C = 12, 14, 24
+    t = _dconv_path_args(rng, 1, 2, H, W, C, 1.0, cuda, k=5)
+    N = t[0].shape[1]
+    g = torch.from_numpy(rng.randn(2, C, N).astype(np.float32)).to(cuda).transpose(1, 2)
+    got = kernels.dconv_col_bwd(*t, g, (H, W), (25, H, W) if with_layout else None)
+    _dconv_bwd_check(got, kernels.dconv_col_bwd_plain(*t, g, (H, W)), t)
+
+
+def test_dconv_function_hands_the_backward_g_as_it_comes(cuda, monkeypatch):
+    """deformable_convolution's column gradient reaches dconv_col_bwd as the
+    channel-major view the autograd makes, not as a copy, with the rows'
+    layout."""
+    from mxnet_tpu_torch.ops.detection import deformable_convolution
+
+    seen = []
+    wrapper = kernels.dconv_col_bwd
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(kernels, "dconv_col_bwd", record)
+    rng = np.random.RandomState(2)
+    data = torch.from_numpy(rng.randn(1, 32, 12, 16).astype(np.float32)).to(cuda)
+    off = torch.from_numpy(rng.randn(1, 2 * 2 * 9, 12, 16).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.randn(8, 32, 3, 3).astype(np.float32) * 0.1).to(cuda)
+    data.requires_grad_()
+    out = deformable_convolution(data, off, w, kernel=3, num_filter=8, dilate=2,
+                                 pad=2, num_deformable_group=2, no_bias=True)
+    out.square().sum().backward()
+    (args, kw), = seen
+    g = args[8]
+    assert kernels.channel_major(g) and g.stride() == (16 * 9 * 12 * 16, 1, 9 * 12 * 16)
+    assert args[10] == (9, 12, 16) and not kw
 
 
 # the train path's call, S = 3, 300 rows (more than 48 KB of shared memory
@@ -176,9 +303,8 @@ def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     t = _dconv_args(rng, 1, 40, 5, 6, 8, cuda)
     with pytest.raises(ValueError, match="g must be float32"):
         kernels.dconv_col_bwd(*t, torch.rand(1, 40, 8, device=cuda).double(), (5, 6))
-    with pytest.raises(ValueError, match="contiguous"):
-        kernels.dconv_col_bwd(*t, torch.rand(1, 8, 40, device=cuda).transpose(1, 2),
-                              (5, 6))
+    with pytest.raises(ValueError, match="contiguous"):  # every other stride
+        kernels.dconv_col_bwd(*t, torch.rand(1, 40, 16, device=cuda)[:, :, ::2], (5, 6))
     yv, xv = torch.rand(4, 2, 3, device=cuda), torch.rand(4, 2, 5, device=cuda)
     with pytest.raises(ValueError, match="g must be"):
         kernels.psroi_abuild_bwd(yv, xv, torch.rand(4, 5, 3, device=cuda))

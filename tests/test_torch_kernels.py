@@ -134,9 +134,24 @@ def test_abuild_plain_matches_pallas_interpret(shape):
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
-def test_dconv_bwd_plain_matches_pallas_vjp():
+# how the backward is reached: the wrapper, or DConvCol's autograd; g
+# contiguous or channel-major
+@pytest.mark.parametrize("g_layout", ["contiguous", "channel_major"])
+@pytest.mark.parametrize("via", ["wrapper", "function"])
+def test_dconv_bwd_plain_matches_pallas_vjp(via, g_layout):
     """All four cotangents of the TPU kernel's custom VJP, clamped rows and
     columns and dead rows included."""
+    _check_dconv_bwd_against_pallas_vjp(via, g_layout, None)
+
+
+# the rows' layout (K2, Ho, Wo) given, as deformable_convolution gives it
+@pytest.mark.parametrize("g_layout", ["contiguous", "channel_major"])
+@pytest.mark.parametrize("via", ["wrapper", "function"])
+def test_dconv_bwd_with_a_row_layout_matches_pallas_vjp(via, g_layout):
+    _check_dconv_bwd_against_pallas_vjp(via, g_layout, (2, 5, 7))
+
+
+def _check_dconv_bwd_against_pallas_vjp(via, g_layout, layout):
     rng = np.random.RandomState(1)
     args, hw = _dconv_inputs(rng)
     ints, flts = args[:4], args[4:]
@@ -146,7 +161,17 @@ def test_dconv_bwd_plain_matches_pallas_vjp():
                                                 lf, ft, hw, True),
         *map(jnp.asarray, flts))
     ref = vjp(jnp.asarray(g))
-    got = kernels.dconv_col_bwd(*map(torch.from_numpy, args + (g,)), hw)
+    gt = torch.from_numpy(g)
+    if g_layout == "channel_major":
+        gt = gt.transpose(1, 2).contiguous().transpose(1, 2)
+    t = list(map(torch.from_numpy, args))
+    extra = () if layout is None else (layout,)
+    if via == "wrapper":
+        got = kernels.dconv_col_bwd(*t, gt, hw, *extra)
+    else:
+        leaves = [a.requires_grad_() for a in t[4:]]
+        got = torch.autograd.grad(kernels.DConvCol.apply(*t[:4], *leaves, hw, *extra),
+                                  leaves, gt)
     # fp32 sums over C (row gradients) and over the rows hitting one pixel
     # (d_ft), in another order
     for name, r, t in zip(("d_ly", "d_lx", "d_lf", "d_ft"), ref, got):
@@ -243,21 +268,50 @@ def test_dconv_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.parametrize("bad", ["g_dtype", "g_shape", "abuild_g_shape",
-                                 "abuild_dtype"])
+                                 "abuild_dtype", "g_strides", "g_batch_strides"])
 def test_backward_wrappers_reject_what_the_kernels_do_not_take(bad):
     rng = np.random.RandomState(6)
-    args, hw = _dconv_inputs(rng, BG=1, N=10, H=4, W=5, C=3)
+    args, hw = _dconv_inputs(rng, BG=2, N=10, H=4, W=5, C=3)
     t = list(map(torch.from_numpy, args))
     yv, xv, ga = torch.rand(4, 2, 3), torch.rand(4, 2, 5), torch.rand(4, 3, 5)
     with pytest.raises(ValueError):
-        if bad == "g_dtype":
-            kernels.dconv_col_bwd(*t, torch.rand(1, 10, 3, dtype=torch.float64), hw)
+        if bad == "g_strides":  # neither contiguous nor channel-major
+            kernels.dconv_col_bwd(*t, torch.rand(2, 10, 6)[:, :, ::2], hw)
+        elif bad == "g_batch_strides":  # channel-major rows, batches interleaved
+            kernels.dconv_col_bwd(*t, torch.rand(3, 2, 10).permute(1, 2, 0), hw)
+        elif bad == "g_dtype":
+            kernels.dconv_col_bwd(*t, torch.rand(2, 10, 3, dtype=torch.float64), hw)
         elif bad == "g_shape":
-            kernels.dconv_col_bwd(*t, torch.rand(1, 10, 4), hw)
+            kernels.dconv_col_bwd(*t, torch.rand(2, 10, 4), hw)
         elif bad == "abuild_g_shape":
             kernels.psroi_abuild_bwd(yv, xv, ga[:, :2])
         else:
             kernels.psroi_abuild_bwd(yv.double(), xv.double(), ga.double())
+
+
+@pytest.mark.parametrize("layout", [(5, 2, 2), (2, 5, 2), (0, 5, 2), (1, 10, 1.5)])
+def test_dconv_bwd_wrapper_rejects_a_row_layout_that_is_not_n(layout):
+    """K2·Ho·Wo must be N, every part positive and whole."""
+    rng = np.random.RandomState(7)
+    args, hw = _dconv_inputs(rng, BG=2, N=10, H=4, W=5, C=3)
+    t = list(map(torch.from_numpy, args))
+    with pytest.raises(ValueError, match="layout"):
+        kernels.dconv_col_bwd(*t, torch.rand(2, 10, 3), hw, layout)
+
+
+def test_dconv_bwd_plain_takes_either_g_layout():
+    """The wrapper (the plain version here) gives the same gradients for a
+    channel-major g as for the same values laid out contiguously."""
+    rng = np.random.RandomState(12)
+    args, hw = _dconv_inputs(rng, BG=2, N=36, H=5, W=6, C=7)
+    t = list(map(torch.from_numpy, args))
+    g = torch.from_numpy(rng.randn(2, 7, 36).astype(np.float32)).transpose(1, 2)
+    assert kernels.channel_major(g) and not kernels.channel_major(g.contiguous())
+    got = kernels.dconv_col_bwd(*t, g, hw)
+    ref = kernels.dconv_col_bwd(*t, g.contiguous(), hw)
+    for a, b in zip(got, ref):
+        # the same products; a strided bmm may group its sums otherwise
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 def test_build_hash_tracks_the_sources(monkeypatch, tmp_path):

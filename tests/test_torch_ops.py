@@ -132,6 +132,37 @@ def test_deformable_convolution_gradients(size, dg, cin, offsets):
                                    atol=1e-5 * np.abs(r).max(), err_msg=name)
 
 
+def test_deformable_convolution_hands_the_backward_g_as_it_comes(monkeypatch):
+    """The column gradient reaches ``dconv_col_bwd`` as the channel-major view
+    the autograd makes (no copy), with the factors laid out (tap, ho, wo)."""
+    from mxnet_tpu_torch.ops import kernels
+
+    seen = []
+    wrapper = kernels.dconv_col_bwd
+
+    def record(*args, **kw):
+        seen.append(args)
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(kernels, "dconv_col_bwd", record)
+    rng = np.random.RandomState(3)
+    B, C, H, W, DG = 2, 8, 6, 7, 2
+    leaves = [_t(rng.randn(*s).astype(np.float32)).requires_grad_() for s in
+              ((B, C, H, W), (B, 2 * DG * 9, H, W), (5, C, 3, 3))]
+    out = tdet.deformable_convolution(*leaves, kernel=(3, 3), num_filter=5,
+                                      dilate=(2, 2), pad=(2, 2),
+                                      num_deformable_group=DG, no_bias=True)
+    out.square().sum().backward()
+    (args,) = seen
+    g = args[8]
+    N = 9 * H * W
+    assert g.shape == (B * DG, N, C // DG) and g.stride() == (C // DG * N, 1, N)
+    factors = tdet.dconv_sample_factors(leaves[1].detach(), (H, W), (3, 3), (1, 1),
+                                        (2, 2), (2, 2))
+    for a, b in zip(args[:7], factors):
+        assert torch.equal(a, b)
+
+
 def _rois(rng, B, per_image, extent_h, extent_w, grouped):
     x1 = rng.uniform(-10, extent_w - 10, (B * per_image,))
     y1 = rng.uniform(-10, extent_h - 10, (B * per_image,))

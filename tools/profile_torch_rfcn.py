@@ -39,10 +39,10 @@ ITERS = 5
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("nms_alive", ("nms_mask_kernel", "nms_scan_kernel")),
+    ("dconv_col_bwd", ("dconv_col_bwd_",)),
     ("dconv_col", ("dconv_col_kernel",)),
-    ("dconv_col_bwd", ("dconv_col_bwd_kernel",)),
+    ("psroi_abuild_bwd", ("psroi_abuild_bwd_",)),
     ("psroi_abuild", ("psroi_abuild_kernel",)),
-    ("psroi_abuild_bwd", ("psroi_abuild_bwd_kernel",)),
     ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "winograd", "implicit")),
     ("gemm", ("gemm", "cublas", "cutlass", "matmul", "bmm")),
     ("sort", ("sort", "radix", "scan")),
@@ -155,7 +155,7 @@ def main():
             "device_busy_ms": busy if busy else "not measured",
             "idle_share": (1 - busy / traced_wall) if busy else "not measured",
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [{"ms": ms, "launches": n, "name": k} for ms, n, k in kernels[:12]],
+            "top_kernels": [{"ms": ms, "launches": n, "name": k} for ms, n, k in kernels[:20]],
         }), flush=True)
 
 
