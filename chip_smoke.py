@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
    and each backward kernel (and NMS) during that train step, are captured;
    NMS prints its words and survivors per call; each kernel
    is held against its plain PyTorch version on them and timed beside it
-   (and beside one library call where there is one);
+   (and beside one library call where there is one; the dconv forward also
+   beside the copy that would bring its column to the weight product's
+   layout, 0 when it is stored so);
 6. int8: int8 post-training quantization of ResNet-50 v2 (3x224x224, 1,000
    classes, seeded He-scaled weights, BN moving mean 0 and variance 1):
    naive calibration over 4 batches of 8, ``quantize_model`` with fc1 left
@@ -336,6 +338,14 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def layout_copy_ms(col, reps):
+    """Device ms of the copy that would turn the (BG, N, C) column ``col``
+    into the weight product's layout, (BG, C, N) contiguous: 0 when ``col``
+    is stored so (channel-major), since then no copy is made."""
+    t = col.transpose(1, 2)
+    return 0.0 if t.is_contiguous() else time_ms(t.contiguous, reps)
+
+
 def bound(byte_count, flops):
     """Least time (ms) for the work: bytes over the memory rate or float32
     operations over the float32 rate, whichever is larger."""
@@ -523,9 +533,13 @@ def kernel_row(name, k, calls, expected, launches, main, extra_calls=(),
             "" if library_ms is None else ", library %.4f ms" % library_ms,
             bound_ms, bound_by, err, len(calls) + len(extra_calls)))
     if name == "dconv_col":
+        # the copy its caller would make to reach the weight product's layout
+        row["layout_copy_ms"] = layout_copy_ms(out, 20)
         ly, lf = args[4], args[6]
-        say("  dconv samples: %.3f off the integer grid, %.3f live" % (
-            float((ly != 0).float().mean()), float(lf.mean())))
+        say("  dconv samples: %.3f off the integer grid, %.3f live; column "
+            "strides %s, layout copy %.4f ms" % (
+                float((ly != 0).float().mean()), float(lf.mean()),
+                tuple(out.stride()), row["layout_copy_ms"]))
     return row
 
 

@@ -8,26 +8,176 @@
 // non-zeros, so here the kernel is the direct four-corner weighted gather:
 //   col = lf ((1-ly)(1-lx) ft[y0 W + x0] + (1-ly) lx ft[y0 W + x1]
 //             + ly (1-lx) ft[y1 W + x0] + ly lx ft[y1 W + x1])
-// A clamped corner (y1 == y0 or x1 == x0 at the last row or column) puts both
-// weights on one address, as the one-hot compare does.
+// in that order of operations, in fp32.  A clamped corner (y1 == y0 or
+// x1 == x0 at the last row or column) puts both weights on one address, as
+// the one-hot compare does.
 //
-// Bound on the card: bytes.  Each output row is written once and the four
-// corner rows of ft are read from L2 (ft[bg] is 1.2 MB at the R-FCN res5
-// shapes, all of ft 5 MB per image, so it stays resident).  At batch 1 the
-// launch writes 44.8 MB of col and reads 5 MB of ft and 2.5 MB of factors:
-// about 16 us at 3.35 TB/s.  Design: one warp per row n, lanes striding over
-// the channels, so both the corner loads and the col store are contiguous
-// 128-byte transactions; any C is taken.
+// Output layout: channel-major, col[bg] stored as (C, N), i.e. strides
+// (C N, 1, N) of the (BG, N, C) tensor.  That is the layout the weight
+// product of ops/detection.py deformable_convolution reads, so its
+// reshape / permute / reshape of the column are views and no transposing
+// copy of the 44.8 MB column follows the kernel.
+//
+// Bound on the card: bytes.  At the R-FCN res5 call (BG 4, N 21,888,
+// H W 2,432, C 128) the launch writes 44.8 MB of col and reads 5 MB of ft
+// and 2.5 MB of factors: 52.3 MB, about 16 us at 3.35 TB/s.  The four corner
+// rows of ft are read from L2 (ft[bg] is 1.2 MB).
+//
+// Design (C % 4 == 0, N % 4 == 0, 16-byte aligned pointers): a transpose
+// through shared memory.  A persistent block walks over tiles of kTileN
+// consecutive rows n of one bg; the next tile's seven factor vectors are
+// copied into a second shared stage by cp.async while the current tile is
+// computed and stored.  Lanes run along the channels: each loads a float4 of
+// each of the four corner rows, a warp one 512-byte corner row per access,
+// and a warp gathers kGroup rows at once (16 16-byte loads in flight a lane).
+// The combined 4 x 4 block of a lane (4 channels x 4 rows) goes to the
+// shared tile [channel][row] as four 16-byte stores along the rows, whose
+// 16-byte chunk index is XOR-swizzled by the channel so that neither these
+// stores nor the row reads after the barrier conflict on banks.  Then the
+// block writes whole channel rows of col, lanes along n, 16 bytes a lane,
+// as streaming stores (st.global.cs): measured at the R-FCN call, the kernel
+// is faster with them and the weight product that reads col next no slower.
+// Other shapes take a simple kernel that writes the same layout: one thread
+// per output element, threads along n.
 //
 // Contract: y0, y1 in [0, H), x0, x1 in [0, W).  The port's only caller
 // (ops/detection.py deformable_convolution) builds them clamped to the map.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pipeline.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileN = 64;                    // rows n of one tile
+constexpr int kChunks = kTileN / 4;           // 16-byte chunks of a tile row
+constexpr int kChunkC = 128;                  // channels of one pass: 32 lanes x 4
+constexpr int kGroup = 4;                     // rows a warp gathers at once
+constexpr int kGroups = kTileN / (kWarps * kGroup);
+static_assert(kTileN % (kWarps * kGroup) == 0, "a warp owns whole groups");
+static_assert(kChunks >= 8, "the swizzle spans 8 chunks");
 
+__device__ __forceinline__ float sample(float live, float w00, float w01,
+                                        float w10, float w11, float a, float b,
+                                        float c, float d) {
+  return live * (w00 * a + w01 * b + w10 * c + w11 * d);
+}
+
+// the shared tile's chunk for channel `ch`, chunk `q` of its row
+__device__ __forceinline__ int swizzle(int ch, int q) { return q ^ ((ch >> 2) & 7); }
+
+__global__ void __launch_bounds__(kThreads, 2)
+dconv_col_tiled_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
+                       const int* __restrict__ x0, const int* __restrict__ x1,
+                       const float* __restrict__ ly, const float* __restrict__ lx,
+                       const float* __restrict__ lf, const float* __restrict__ ft,
+                       long long tiles, int n, int w, int hw, int c,
+                       float* __restrict__ col) {
+  __shared__ float4 tile[kChunkC][kChunks];
+  __shared__ __align__(16) int corner[2][4][kTileN];   // y0, y1, x0, x1
+  __shared__ __align__(16) float lerp[2][3][kTileN];   // ly, lx, lf
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tiles_per_bg = (n + kTileN - 1) / kTileN;
+
+  // cp.async of tile t's factors into stage s: 7 vectors x kChunks 16-byte
+  // pieces, one a thread; rows past n are not copied (and not read)
+  auto stage = [&](long long t, int s) {
+    if (tid < 7 * kChunks) {
+      const int v = tid / kChunks, k = tid % kChunks;
+      const int row = (int)(t % tiles_per_bg) * kTileN + 4 * k;
+      if (row < n) {
+        const long long off = (t / tiles_per_bg) * n + row;
+        if (v < 4) {
+          const int* src = (v == 0 ? y0 : v == 1 ? y1 : v == 2 ? x0 : x1) + off;
+          mx::cp_async16(reinterpret_cast<float*>(&corner[s][v][4 * k]),
+                         reinterpret_cast<const float*>(src));
+        } else {
+          const float* src = (v == 4 ? ly : v == 5 ? lx : lf) + off;
+          mx::cp_async16(&lerp[s][v - 4][4 * k], src);
+        }
+      }
+    }
+    mx::cp_async_commit();
+  };
+
+  int s = 0;
+  if (blockIdx.x < tiles) stage(blockIdx.x, 0);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, s ^= 1) {
+    // the other stage was last read before the previous tile's first barrier
+    if (t + gridDim.x < tiles) {
+      stage(t + gridDim.x, s ^ 1);
+      mx::cp_async_wait<1>();
+    } else {
+      mx::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const long long bg = t / tiles_per_bg;
+    const int n0 = (int)(t % tiles_per_bg) * kTileN;
+    const int rows = min(kTileN, n - n0);  // a multiple of 4
+    const float* f = ft + bg * hw * (long long)c;
+    float* out = col + bg * (long long)c * n + n0;
+    for (int c0 = 0; c0 < c; c0 += kChunkC) {
+      const int cw = min(kChunkC, c - c0);  // a multiple of 4
+      const int ch = 4 * lane;              // this lane's first channel of the pass
+      if (ch < cw) {
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          const int r0 = (warp * kGroups + g) * kGroup;
+          if (r0 >= rows) break;
+          float4 p[kGroup][4];
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i) {
+            const int r = r0 + i;
+            const int a0 = corner[s][0][r] * w, a1 = corner[s][1][r] * w;
+            const int b0 = corner[s][2][r], b1 = corner[s][3][r];
+            const float* q = f + c0 + ch;
+            p[i][0] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a0 + b0) * c));
+            p[i][1] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a0 + b1) * c));
+            p[i][2] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a1 + b0) * c));
+            p[i][3] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a1 + b1) * c));
+          }
+          float o[4][kGroup];  // [channel][row]
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i) {
+            const int r = r0 + i;
+            const float fy = lerp[s][0][r];
+            const float fx = lerp[s][1][r];
+            const float live = lerp[s][2][r];
+            const float w00 = (1.f - fy) * (1.f - fx);
+            const float w01 = (1.f - fy) * fx;
+            const float w10 = fy * (1.f - fx);
+            const float w11 = fy * fx;
+            o[0][i] = sample(live, w00, w01, w10, w11, p[i][0].x, p[i][1].x, p[i][2].x, p[i][3].x);
+            o[1][i] = sample(live, w00, w01, w10, w11, p[i][0].y, p[i][1].y, p[i][2].y, p[i][3].y);
+            o[2][i] = sample(live, w00, w01, w10, w11, p[i][0].z, p[i][1].z, p[i][2].z, p[i][3].z);
+            o[3][i] = sample(live, w00, w01, w10, w11, p[i][0].w, p[i][1].w, p[i][2].w, p[i][3].w);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            tile[ch + j][swizzle(ch + j, r0 / 4)] = make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+          }
+        }
+      }
+      __syncthreads();
+      // whole channel rows of col: kChunks 16-byte pieces a channel
+      for (int e = tid; e < cw * kChunks; e += kThreads) {
+        const int cc = e / kChunks, q = e % kChunks;
+        if (4 * q < rows) {
+          __stcs(reinterpret_cast<float4*>(out + (long long)(c0 + cc) * n + 4 * q),
+                 tile[cc][swizzle(cc, q)]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// any C, N and alignment: one thread per output element, in col's
+// channel-major order (threads along n)
 __global__ void dconv_col_kernel(const int* __restrict__ y0,
                                  const int* __restrict__ y1,
                                  const int* __restrict__ x0,
@@ -35,47 +185,59 @@ __global__ void dconv_col_kernel(const int* __restrict__ y0,
                                  const float* __restrict__ ly,
                                  const float* __restrict__ lx,
                                  const float* __restrict__ lf,
-                                 const float* __restrict__ ft, long long rows,
+                                 const float* __restrict__ ft, long long total,
                                  int n, int w, int hw, int c,
                                  float* __restrict__ col) {
-  const long long r = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  const long long bg = r / n;
-  const float fy = ly[r];
-  const float fx = lx[r];
-  const float live = lf[r];
-  const float w00 = (1.f - fy) * (1.f - fx);
-  const float w01 = (1.f - fy) * fx;
-  const float w10 = fy * (1.f - fx);
-  const float w11 = fy * fx;
-  const float* f = ft + bg * hw * (long long)c;
-  const float* p00 = f + (long long)(y0[r] * w + x0[r]) * c;
-  const float* p01 = f + (long long)(y0[r] * w + x1[r]) * c;
-  const float* p10 = f + (long long)(y1[r] * w + x0[r]) * c;
-  const float* p11 = f + (long long)(y1[r] * w + x1[r]) * c;
-  float* out = col + r * c;
-  for (int k = lane; k < c; k += 32) {
-    out[k] = live * (w00 * p00[k] + w01 * p01[k] + w10 * p10[k] + w11 * p11[k]);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += stride) {
+    const long long bgc = e / n;
+    const long long r = (bgc / c) * n + e % n;  // the factors' row
+    const int k = (int)(bgc % c);
+    const float fy = ly[r];
+    const float fx = lx[r];
+    const float w00 = (1.f - fy) * (1.f - fx);
+    const float w01 = (1.f - fy) * fx;
+    const float w10 = fy * (1.f - fx);
+    const float w11 = fy * fx;
+    const float* f = ft + (bgc / c) * hw * (long long)c + k;
+    const long long a0 = (long long)y0[r] * w, a1 = (long long)y1[r] * w;
+    col[e] = sample(lf[r], w00, w01, w10, w11, f[(a0 + x0[r]) * c],
+                    f[(a0 + x1[r]) * c], f[(a1 + x0[r]) * c], f[(a1 + x1[r]) * c]);
   }
 }
 
 }  // namespace
 
 // y0..x1 (BG, N) i32; ly, lx, lf (BG, N) f32; ft (BG, H W, C) f32;
-// col (BG, N, C) f32 out.
+// col (BG, N, C) f32 out, channel-major (strides (C N, 1, N)).  `vec` says
+// C % 4 == 0, N % 4 == 0 and every pointer 16-byte aligned: the tiled kernel.
 extern "C" int mx_dconv_col(const void* y0, const void* y1, const void* x0,
                             const void* x1, const void* ly, const void* lx,
                             const void* lf, const void* ft, void* col, int bg,
-                            int n, int h, int w, int c, void* stream) {
-  const long long rows = (long long)bg * n;
-  const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  dconv_col_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(y0), static_cast<const int*>(y1),
-      static_cast<const int*>(x0), static_cast<const int*>(x1),
-      static_cast<const float*>(ly), static_cast<const float*>(lx),
-      static_cast<const float*>(lf), static_cast<const float*>(ft), rows, n,
-      w, h * w, c, static_cast<float*>(col));
+                            int n, int h, int w, int c, int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* iy0 = static_cast<const int*>(y0);
+  const auto* iy1 = static_cast<const int*>(y1);
+  const auto* ix0 = static_cast<const int*>(x0);
+  const auto* ix1 = static_cast<const int*>(x1);
+  const auto* fly = static_cast<const float*>(ly);
+  const auto* flx = static_cast<const float*>(lx);
+  const auto* flf = static_cast<const float*>(lf);
+  const auto* fft = static_cast<const float*>(ft);
+  float* out = static_cast<float*>(col);
+  if (vec) {
+    const long long tiles = (long long)bg * ((n + kTileN - 1) / kTileN);
+    int blocks = 0;
+    cudaError_t err = mx::persistent_grid(dconv_col_tiled_kernel, kThreads, 0, tiles, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dconv_col_tiled_kernel<<<blocks, kThreads, 0, st>>>(
+        iy0, iy1, ix0, ix1, fly, flx, flf, fft, tiles, n, w, h * w, c, out);
+  } else {
+    const long long total = (long long)bg * n * c;
+    const long long blocks = std::min<long long>((total + kThreads - 1) / kThreads, 1 << 20);
+    dconv_col_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+        iy0, iy1, ix0, ix1, fly, flx, flf, fft, total, n, w, h * w, c, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

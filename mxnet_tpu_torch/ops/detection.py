@@ -123,6 +123,7 @@ def deformable_convolution(data, offset, weight, bias=None, *, kernel,
     ft = (data.reshape(B, DG, cpg, H * W).transpose(2, 3)
           .reshape(B * DG, H * W, cpg).contiguous())
     col = kernels.DConvCol.apply(y0, y1, x0, x1, ly, lx, lf, ft, (H, W), (K2, Ho, Wo))
+    # views, no copy: the column comes stored channel-major, (BG, cpg, N)
     col = (col.reshape(B, DG, K2, Ho * Wo, cpg).permute(0, 1, 4, 2, 3)
            .reshape(B, C * K2, Ho * Wo))
     # a bmm with the weight expanded over the batch, not matmul: when the

@@ -198,7 +198,13 @@ def dconv_col_plain(y0, y1, x0, x1, ly, lx, lf, ft, hw):
     xv = lf[..., None] * ((1.0 - lx)[..., None] * (x0[..., None] == ix)
                           + lx[..., None] * (x1[..., None] == ix))    # (BG,N,W)
     a = (yv[..., :, None] * xv[..., None, :]).reshape(BG, N, H * W)
-    return torch.bmm(a, ft)
+    return _col_empty(BG, N, ft.shape[2], ft.device).copy_(torch.bmm(a, ft))
+
+
+def _col_empty(BG, N, C, dev):
+    """The (BG, N, C) column, stored channel-major: strides (C·N, 1, N)."""
+    return torch.empty_strided((BG, N, C), (C * N, 1, N), dtype=torch.float32,
+                               device=dev)
 
 
 def dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw):
@@ -207,7 +213,9 @@ def dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw):
 
     y0, y1, x0, x1 (BG, N) int32 corner indices inside the (H, W) map;
     ly, lx (BG, N) f32 lerp factors; lf (BG, N) f32 live mask;
-    ft (BG, H·W, C) f32.  Returns (BG, N, C) f32.
+    ft (BG, H·W, C) f32.  Returns (BG, N, C) f32 stored channel-major,
+    strides (C·N, 1, N), on both devices: the layout of the weight product
+    in ``deformable_convolution``, whose reshapes of it are then views.
     """
     H, W, BG, N = _dconv_check("dconv_col", y0, y1, x0, x1, ly, lx, lf, ft, hw)
     dev = _same_device("dconv_col", y0, y1, x0, x1, ly, lx, lf, ft)
@@ -217,13 +225,19 @@ def dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw):
     _contiguous("dconv_col", y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx,
                 lf=lf, ft=ft)
     C = ft.shape[2]
-    col = torch.empty((BG, N, C), dtype=torch.float32, device=dev)
+    col = _col_empty(BG, N, C, dev)
     if col.numel() == 0:
         return col
-    _launch("dconv_col", dev, "mx_dconv_col", y0.data_ptr(), y1.data_ptr(),
-            x0.data_ptr(), x1.data_ptr(), ly.data_ptr(), lx.data_ptr(),
-            lf.data_ptr(), ft.data_ptr(), col.data_ptr(), BG, N, H, W, C)
+    tensors = (y0, y1, x0, x1, ly, lx, lf, ft, col)
+    _launch("dconv_col", dev, "mx_dconv_col", *(t.data_ptr() for t in tensors),
+            BG, N, H, W, C, _dconv_col_vec(tensors, N, C))
     return col
+
+
+def _dconv_col_vec(tensors, N, C):
+    """1 where the tiled dconv forward takes the call: its 16-byte accesses
+    need whole float4s of channels and of rows, and aligned pointers."""
+    return int(C % 4 == 0 and N % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 dconv_col.launches = 0
@@ -330,7 +344,8 @@ class DConvCol(torch.autograd.Function):
     int corner indices, and the backward launches only when one of ly, lx,
     lf, ft needs a gradient.  A channel-major cotangent goes to the backward
     as it comes, any other is made contiguous.  An optional last argument,
-    the rows' layout (K², Ho, Wo), goes to the backward wrapper.
+    the rows' layout (K², Ho, Wo), goes to the backward wrapper.  The
+    column comes out as :func:`dconv_col` stores it, channel-major.
     Both directions look the wrappers up as module attributes at call time,
     so a caller that wraps them sees every call."""
 

@@ -83,23 +83,34 @@ def test_nms_kernel_extreme_survivor_counts(cuda, case, n):
     assert int(got.sum()) == want
 
 
-@pytest.mark.parametrize("c", [1, 72, 128])
-def test_dconv_kernel_matches_plain(cuda, c):
-    rng = np.random.RandomState(c)
-    BG, N, H, W = 4, 500, 19, 23
-    y0 = rng.randint(0, H, (BG, N))
-    x0 = rng.randint(0, W, (BG, N))
-    y0[:, :20] = H - 1  # clamped corners
-    x0[:, 10:30] = W - 1
-    args = [y0, np.minimum(y0 + 1, H - 1), x0, np.minimum(x0 + 1, W - 1)]
-    t = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in args]
-    t += [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
-        rng.rand(BG, N), rng.rand(BG, N), rng.rand(BG, N) > 0.2,
-        rng.randn(BG, H * W, c))]
+# (BG, N, H, W, C): the serve call at batch 1 and 2; C of one channel, 72
+# (a part of one 128-channel pass), 128, 130 (not a multiple of 4), 132 (a
+# second pass of four) and 256; N = 500 is no multiple of the tile's 64 rows,
+# N = 501 and 22 no multiple of 4
+@pytest.mark.parametrize("shape", [(4, 21888, 38, 64, 128), (8, 21888, 38, 64, 128),
+                                   (4, 500, 19, 23, 1), (4, 500, 19, 23, 72),
+                                   (4, 500, 19, 23, 128), (4, 500, 19, 23, 130),
+                                   (3, 500, 19, 23, 132), (2, 500, 19, 23, 256),
+                                   (4, 501, 19, 23, 128), (2, 22, 5, 6, 8)])
+def test_dconv_kernel_matches_plain(cuda, shape):
+    """Clamped corners and dead rows; the column channel-major, strides
+    (C·N, 1, N).  Where the tiled design runs, a copy of ft one float off
+    16-byte alignment takes the one-thread-per-output kernel, which must
+    give the same bits."""
+    BG, N, H, W, C = shape
+    rng = np.random.RandomState(C + N)
+    t = _dconv_args(rng, BG, N, H, W, C, cuda)
+    before = kernels.dconv_col.launches
+    got = kernels.dconv_col(*t, (H, W))
+    assert kernels.dconv_col.launches == before + 1
+    assert got.stride() == (C * N, 1, N)
     # at most four fp32 products per output, in another order than the bmm
-    torch.testing.assert_close(kernels.dconv_col(*t, (H, W)),
-                               kernels.dconv_col_plain(*t, (H, W)),
+    torch.testing.assert_close(got, kernels.dconv_col_plain(*t, (H, W)),
                                rtol=1e-5, atol=1e-5)
+    if C % 4 == 0 and N % 4 == 0:
+        ft = torch.empty(t[7].numel() + 1, device=cuda)[1:].view(t[7].shape).copy_(t[7])
+        assert ft.data_ptr() % 16 != 0
+        assert torch.equal(kernels.dconv_col(*t[:7], ft, (H, W)), got)
 
 
 # (N, S, H, W): the serve path's rows; S = 3; more than 48 KB of shared memory
@@ -265,6 +276,35 @@ def test_dconv_function_hands_the_backward_g_as_it_comes(cuda, monkeypatch):
     g = args[8]
     assert kernels.channel_major(g) and g.stride() == (16 * 9 * 12 * 16, 1, 9 * 12 * 16)
     assert args[10] == (9, 12, 16) and not kw
+
+
+def test_dconv_function_hands_bmm_the_kernels_column(cuda, monkeypatch):
+    """In deformable_convolution the weight product reads the kernel's own
+    storage: the reshapes of the channel-major column are views."""
+    from mxnet_tpu_torch.ops.detection import deformable_convolution
+
+    cols, operands = [], []
+    wrapper, bmm = kernels.dconv_col, torch.bmm
+
+    def record_col(*args, **kw):
+        cols.append(wrapper(*args, **kw))
+        return cols[-1]
+
+    def record_bmm(a, b):
+        operands.append(b)
+        return bmm(a, b)
+
+    monkeypatch.setattr(kernels, "dconv_col", record_col)
+    monkeypatch.setattr(torch, "bmm", record_bmm)
+    rng = np.random.RandomState(2)
+    data = torch.from_numpy(rng.randn(1, 32, 12, 16).astype(np.float32)).to(cuda)
+    off = torch.from_numpy(rng.randn(1, 2 * 2 * 9, 12, 16).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.randn(8, 32, 3, 3).astype(np.float32) * 0.1).to(cuda)
+    deformable_convolution(data, off, w, kernel=3, num_filter=8, dilate=2, pad=2,
+                           num_deformable_group=2, no_bias=True)
+    (col,), (operand,) = cols, operands
+    assert col.stride() == (16 * 9 * 12 * 16, 1, 9 * 12 * 16)
+    assert operand.untyped_storage().data_ptr() == col.untyped_storage().data_ptr()
 
 
 # the train path's call, S = 3, 300 rows (more than 48 KB of shared memory

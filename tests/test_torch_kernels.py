@@ -116,6 +116,22 @@ def test_dconv_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
+# (BG, N, C): a small shape, then empty columns (no rows, no channels, no bg)
+@pytest.mark.parametrize("shape", [(3, 70, 16), (2, 0, 5), (2, 9, 0), (0, 9, 5)])
+def test_dconv_col_is_stored_channel_major(shape):
+    """The column comes out as the weight product reads it, strides
+    (C·N, 1, N), with the TPU kernel's values; an empty one too."""
+    BG, N, C = shape
+    rng = np.random.RandomState(2)
+    args, hw = _dconv_inputs(rng, BG=BG, N=N, C=C)
+    got = kernels.dconv_col(*map(torch.from_numpy, args), hw)
+    assert got.shape == (BG, N, C) and got.stride() == (C * N, 1, N)
+    if got.numel():
+        ref = np.asarray(dconv_col_pallas(*map(jnp.asarray, args), hw, True))
+        # at most four non-zero fp32 products per output, summed in another order
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
 # (N, S, H, W): a small R-FCN-like shape, then the card kernels' edge shapes
 # S = 1 and W not a multiple of 4
 ABUILD_SHAPES = [(70, 16, 13, 21), (20, 1, 38, 64), (33, 16, 38, 61)]

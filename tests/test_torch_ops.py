@@ -163,6 +163,41 @@ def test_deformable_convolution_hands_the_backward_g_as_it_comes(monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_deformable_convolution_hands_bmm_the_kernels_column(monkeypatch, device):
+    """The weight product reads ``dconv_col``'s own storage: the reshapes
+    between them are views of the channel-major column, not a copy."""
+    from mxnet_tpu_torch.ops import kernels
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cols, operands = [], []
+    wrapper, bmm = kernels.dconv_col, torch.bmm
+
+    def record_col(*args, **kw):
+        cols.append(wrapper(*args, **kw))
+        return cols[-1]
+
+    def record_bmm(a, b):
+        operands.append(b)
+        return bmm(a, b)
+
+    monkeypatch.setattr(kernels, "dconv_col", record_col)
+    monkeypatch.setattr(torch, "bmm", record_bmm)
+    rng = np.random.RandomState(4)
+    B, C, H, W, DG = 2, 8, 6, 7, 2
+    data, off, w = (_t(rng.randn(*s).astype(np.float32)).to(device) for s in
+                    ((B, C, H, W), (B, 2 * DG * 9, H, W), (5, C, 3, 3)))
+    tdet.deformable_convolution(data, off, w, kernel=(3, 3), num_filter=5,
+                                dilate=(2, 2), pad=(2, 2), num_deformable_group=DG,
+                                no_bias=True)
+    # the last product is the weight's (on the CPU the plain column is one too)
+    (col,), operand = cols, operands[-1]
+    assert col.stride() == (C // DG * 9 * H * W, 1, 9 * H * W)
+    assert operand.shape == (B, C * 9, H * W)
+    assert operand.untyped_storage().data_ptr() == col.untyped_storage().data_ptr()
+
+
 def _rois(rng, B, per_image, extent_h, extent_w, grouped):
     x1 = rng.uniform(-10, extent_w - 10, (B * per_image,))
     y1 = rng.uniform(-10, extent_h - 10, (B * per_image,))

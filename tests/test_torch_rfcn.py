@@ -246,3 +246,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "mxnet_tpu", "examples"), (f, mod)
+
+
+def test_profile_tool_groups_each_kernel_under_its_own_name():
+    """tools/profile_torch_rfcn.py sums device time by group: every kernel
+    of an R-FCN kernel source (each design of it) lands in the source's
+    group, and no other group claims it."""
+    import importlib.util
+    import re
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_rfcn", ROOT / "tools" / "profile_torch_rfcn.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    csrc = ROOT / "mxnet_tpu_torch" / "ops" / "csrc"
+    for group in ("nms_alive", "dconv_col", "dconv_col_bwd", "psroi_abuild",
+                  "psroi_abuild_bwd"):
+        names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                           (csrc / (group + ".cu")).read_text())
+        assert names, group
+        for name in names:  # as the profiler shows a kernel in an anonymous namespace
+            assert tool.group_of("(anonymous namespace)::%s(float const*)" % name) == group

@@ -3,20 +3,25 @@
 
     python3 tools/bench_kernels.py [--kernels a,b,...] [--against DIR ...]
 
-Kernels (``--kernels``, default all four):
+Kernels (``--kernels``, default all five):
 
 * ``psroi_abuild`` on the serve call (N = 14,700, S = 16, 38 x 64) and
   ``psroi_abuild_bwd`` on the train call (N = 6,272), on seeded inputs of the
   path's shapes, each beside two ``torch.bmm`` yardsticks;
-* ``nms_alive`` and ``dconv_col_bwd`` on the path's own calls: the tool
-  builds ``chip_smoke.py``'s full-width R-101 model (seeded weights), runs
-  one inference forward and one batch-1 train step and records the calls
-  (NMS on the serve and on the train call, the first of the three dconv
-  backward calls).  NMS prints its words and survivors per call; the dconv
-  backward is timed on ``g`` and the rows' layout as the autograd hands
-  them, beside the copy that would make that ``g`` contiguous, and prints
-  its tiles' windows (the tiled design's share of tiles whose window fits
-  in shared memory, and window quantiles in pixels).
+* ``nms_alive``, ``dconv_col`` and ``dconv_col_bwd`` on the path's own
+  calls: the tool builds ``chip_smoke.py``'s full-width R-101 model (seeded
+  weights), runs one inference forward and, for NMS and the dconv backward,
+  one batch-1 train step, and records the calls (NMS on the serve and on the
+  train call, the first of the three dconv forward calls of the serve
+  forward and of the three backward calls of the step).  NMS prints its
+  words and survivors per call; the dconv forward is timed beside
+  ``layout_copy_ms``, the copy that would turn its column into the weight
+  product's layout (0 when it is stored that way, channel-major), and is
+  also compared on a few edge shapes; the dconv backward is timed on ``g``
+  and the rows' layout as the autograd hands them, beside the copy that
+  would make that ``g`` contiguous, and prints its tiles' windows (the
+  tiled design's share of tiles whose window fits in shared memory, and
+  window quantiles in pixels).
 
 Each row gives the kernel's device time (``chip_smoke.time_ms``), its bound,
 and a device copy of the same byte count.  With ``--against DIR`` (another
@@ -32,8 +37,11 @@ file exists (another revision's ``ops`` package), else this revision's.
 An older ``mx_dconv_col_bwd`` takes a prefix of this revision's integer
 arguments (BG, N, H, W, C; then g's row and channel strides; then the rows'
 layout K2, Ho, Wo); one without g's strides gets a contiguous copy of g,
-made once and not timed.  Prints one JSON object per line.  Needs one
-NVIDIA GPU; imports no JAX.
+made once and not timed.  An ``mx_dconv_col`` without this revision's last
+integer argument (``vec``) writes its column row-major: its row also gives
+``layout_copy_ms``, the caller's transposing copy of that column alone, and
+``with_layout_copy_ms``, the kernel and that copy together, both in turns.
+Prints one JSON object per line.  Needs one NVIDIA GPU; imports no JAX.
 """
 import argparse
 import ctypes
@@ -53,7 +61,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (timer, bound, work, the model's settings)
 from mxnet_tpu_torch.ops import _build, kernels  # noqa: E402
 
-ALL = ("psroi_abuild", "psroi_abuild_bwd", "nms_alive", "dconv_col_bwd")
+ALL = ("psroi_abuild", "psroi_abuild_bwd", "nms_alive", "dconv_col", "dconv_col_bwd")
 ABUILD_CALLS = {"psroi_abuild": (14700, 16, 38, 64),
                 "psroi_abuild_bwd": (6272, 16, 38, 64)}
 REPS = 50  # timed calls in a row, after chip_smoke.time_ms's warm-up
@@ -62,6 +70,10 @@ ABUILD_TEST_SHAPES = ((300, 16, 38, 64), (7, 3, 5, 200), (20, 16, 800, 64),
                       (33, 16, 38, 61), (20, 1, 38, 64), (20, 16, 1, 64),
                       (1, 16, 38, 64), (300, 16, 76, 64), (6271, 16, 38, 64),
                       (20, 16, 300, 64))
+# (BG, N, H, W, C) of the card tests' dconv forward shapes that take the
+# other kernel or part of a pass (C 72, 130, 132; N 501), compared across builds
+DCONV_TEST_SHAPES = ((4, 500, 19, 23, 72), (4, 501, 19, 23, 128),
+                     (4, 500, 19, 23, 130), (3, 500, 19, 23, 132))
 
 
 def say(obj):
@@ -111,6 +123,9 @@ class Other:
         # the integer arguments this build's mx_dconv_col_bwd takes (13
         # pointers before them, the stream after)
         self.dconv_ints = len(sigs["mx_dconv_col_bwd"]) - 14
+        # an mx_dconv_col with five integer arguments (9 pointers before
+        # them) writes col row-major; one with six takes ``vec`` last
+        self.col_row_major = len(sigs["mx_dconv_col"]) - 10 == 5
         for name, argtypes in sigs.items():
             fn = getattr(self.dll, name)
             fn.argtypes = argtypes
@@ -150,6 +165,17 @@ class Other:
                                 None if idf is None else idf.data_ptr(),
                                 self.masks[key].data_ptr(), outs.data_ptr(), B, N,
                                 float(kw["thresh"]), float(kw.get("plus_one", 1.0)), stream)
+        elif name == "dconv_col":
+            y0, ft, hw = args[0], args[7], args[8]
+            BG, N = y0.shape
+            C = ft.shape[2]
+            if self.col_row_major:
+                outs, extra = torch.empty((BG, N, C), device="cuda"), []
+            else:
+                outs = kernels._col_empty(BG, N, C, y0.device)
+                extra = [kernels._dconv_col_vec((*args[:8], outs), N, C)]
+            rc = d.mx_dconv_col(*(t.data_ptr() for t in args[:8]), outs.data_ptr(),
+                                BG, N, hw[0], hw[1], C, *extra, stream)
         else:  # dconv_col_bwd
             y0, y1, x0, x1, ly, lx, lf, ft, g, hw = args[:10]
             layout = args[10] if len(args) > 10 else kw.get("layout")
@@ -190,7 +216,7 @@ def agree(name, got, ref):
     for a, b in zip(got, ref):
         scale = float(b.abs().max()) if b.numel() else 0.0
         rtol = 1e-4 if name == "dconv_col_bwd" else 1e-5
-        atol = 1e-5 if name == "psroi_abuild" else 1e-5 * scale
+        atol = 1e-5 if name in ("psroi_abuild", "dconv_col") else 1e-5 * scale
         close &= scale == scale and bool(torch.allclose(a, b, rtol=rtol, atol=atol))
     return equal, diff, close
 
@@ -204,8 +230,23 @@ def abuild_inputs(name, shape, seed):
     return [torch.from_numpy(a.astype(np.float32)).cuda() for a in t]
 
 
+def dconv_inputs(shape, seed):
+    """Seeded dconv forward inputs with clamped corners and dead rows, as
+    the card tests make them."""
+    BG, N, H, W, C = shape
+    rng = np.random.RandomState(seed)
+    y0, x0 = rng.randint(0, H, (BG, N)), rng.randint(0, W, (BG, N))
+    y0[:, :20], x0[:, 10:30] = H - 1, W - 1
+    ints = [y0, np.minimum(y0 + 1, H - 1), x0, np.minimum(x0 + 1, W - 1)]
+    flts = [rng.rand(BG, N), rng.rand(BG, N), rng.rand(BG, N) > 0.2,
+            rng.randn(BG, H * W, C)]
+    return tuple([torch.from_numpy(a.astype(np.int32)).cuda() for a in ints]
+                 + [torch.from_numpy(a.astype(np.float32)).cuda() for a in flts]
+                 + [(H, W)])
+
+
 def path_calls(names, dev, config):
-    """The calls of ``names`` (nms_alive, dconv_col_bwd) on the R-FCN path of
+    """The calls of ``names`` (nms_alive, dconv_col, dconv_col_bwd) on the R-FCN path of
     ``config`` (``chip_smoke.FULL``: the full-width R-101):
     {name: [(label, args, kw), ...]}."""
     from mxnet_tpu_torch import train_fused
@@ -217,19 +258,23 @@ def path_calls(names, dev, config):
     H, W = net.image_shape
     data, info = chip_smoke.make_request(gen, [[H, W, 1.0]], (H, W), dev)
     calls = {n: [] for n in names}
-    if "nms_alive" in names:
-        got = chip_smoke.capture_calls(kernels, ["nms_alive"], lambda: net(data, info))
-        calls["nms_alive"] += [("serve", a, k) for a, k in got["nms_alive"]]
-    step = train_fused.make_rfcn_train_step(net, 1, learning_rate=chip_smoke.LR,
-                                            momentum=0.9)
-    inputs = chip_smoke.train_inputs(net, np.random.RandomState(chip_smoke.SEED), 1, dev)
-    nz = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
-    got = chip_smoke.capture_calls(
-        kernels, [n for n in names if n in ("nms_alive", "dconv_col_bwd")],
-        lambda: step(*inputs, *chip_smoke.train_noise(net, 1, nz, dev), chip_smoke.LR))
+    serve = [n for n in names if n in ("nms_alive", "dconv_col")]
+    got = chip_smoke.capture_calls(kernels, serve, lambda: net(data, info))
     for n, lst in got.items():
-        calls[n] += [("train", tuple(a.detach() if torch.is_tensor(a) else a for a in args),
-                      kw) for args, kw in lst[:1]]
+        calls[n] += [("serve", a, k) for a, k in lst[:1]]
+    train = [n for n in names if n in ("nms_alive", "dconv_col_bwd")]
+    if train:
+        step = train_fused.make_rfcn_train_step(net, 1, learning_rate=chip_smoke.LR,
+                                                momentum=0.9)
+        inputs = chip_smoke.train_inputs(net, np.random.RandomState(chip_smoke.SEED), 1,
+                                         dev)
+        nz = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+        got = chip_smoke.capture_calls(
+            kernels, train,
+            lambda: step(*inputs, *chip_smoke.train_noise(net, 1, nz, dev), chip_smoke.LR))
+        for n, lst in got.items():
+            calls[n] += [("train", tuple(a.detach() if torch.is_tensor(a) else a
+                                         for a in args), kw) for args, kw in lst[:1]]
     del net
     torch.cuda.empty_cache()
     return calls
@@ -242,6 +287,8 @@ def describe(name, args, kw, out):
         N = args[1].shape[1]
         d.update(words=-(-N // 64), survivors=[int(v) for v in out.sum(1)],
                  valid=[int(v) for v in args[1].sum(1)], thresh=kw.get("thresh"))
+    if name == "dconv_col":
+        d["col_strides"] = list(out.stride())
     if name == "dconv_col_bwd":
         d["g_strides"] = list(args[8].stride())
         layout = args[10] if len(args) > 10 else kw.get("layout")
@@ -307,7 +354,7 @@ def main():
     for n in names:
         if n in ABUILD_CALLS:
             calls[n] = [("path", tuple(abuild_inputs(n, ABUILD_CALLS[n], 0)), {})]
-    want = [n for n in names if n in ("nms_alive", "dconv_col_bwd")]
+    want = [n for n in names if n in ("nms_alive", "dconv_col", "dconv_col_bwd")]
     if want:
         calls.update(path_calls(want, torch.device("cuda"),
                                 dict(chip_smoke.FULL, units=(3, 4, 23, 3))))
@@ -319,6 +366,8 @@ def main():
             extra = [("test", tuple(abuild_inputs(n, s, i)), {})
                      for i, s in enumerate(ABUILD_TEST_SHAPES)
                      if not (n == "psroi_abuild_bwd" and s[2] == 800)]
+        elif n == "dconv_col":
+            extra = [("test", dconv_inputs(s, i), {}) for i, s in enumerate(DCONV_TEST_SHAPES)]
         for label, args, kw in calls[n] + extra:
             got = k.wrapper(*args, **kw)
             row = {"name": n, "call": label, **describe(n, args, kw, got)}
@@ -343,10 +392,18 @@ def main():
             this = lambda: k.wrapper(*args, **kw)
             row["ms"] = chip_smoke.time_ms(this, REPS)
             for o in others:
-                that = lambda: o.call(n, args, kw)
-                t = [chip_smoke.time_ms(f, REPS) for f in (that, this, this, that)]
-                row[o.label] = {"ms": (t[0] + t[3]) / 2, "turns": [t[0], t[3]],
-                                "this_turns": [t[1], t[2]]}
+                timed = {"ms": lambda: o.call(n, args, kw)}
+                if n == "dconv_col" and o.col_row_major:
+                    old = o.call(n, args, kw)
+                    timed["layout_copy_ms"] = lambda: old.transpose(1, 2).contiguous()
+                    timed["with_layout_copy_ms"] = (
+                        lambda: o.call(n, args, kw).transpose(1, 2).contiguous())
+                row[o.label] = {}
+                for key, that in timed.items():
+                    t = [chip_smoke.time_ms(f, REPS) for f in (that, this, this, that)]
+                    pre = "" if key == "ms" else key + "_"
+                    row[o.label].update({key: (t[0] + t[3]) / 2, pre + "turns": [t[0], t[3]],
+                                         pre + "this_turns": [t[1], t[2]]})
             if n == "psroi_abuild":
                 yv, xv = args
                 row["library_ms"] = chip_smoke.time_ms(
@@ -355,6 +412,8 @@ def main():
                 yv, xv, g = args
                 row["library_ms"] = chip_smoke.time_ms(
                     lambda: (torch.bmm(xv, g.transpose(1, 2)), torch.bmm(yv, g)), REPS)
+            elif n == "dconv_col":
+                row["layout_copy_ms"] = chip_smoke.layout_copy_ms(out, REPS)
             elif n == "dconv_col_bwd":
                 g = args[8]
                 cm = g if not g.is_contiguous() else g.transpose(1, 2).contiguous().transpose(1, 2)
