@@ -37,8 +37,19 @@ Phases, in order; any failure exits non-zero:
    against the plain versions;
 7. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
-   with the same weights and the same noise; and the CIFAR ResNet-8 int8
-   symbol with the same weights and calibration table on both devices.
+   with the same weights and the same noise; the same stages in bf16; and
+   the CIFAR ResNet-8 int8 symbol with the same weights and calibration
+   table on both devices.
+
+Between 4 and 5 the bf16 path runs at the same full width: serve (the model
+with its own seeded weights, ``cast("bfloat16")``, three single-image
+requests and one batch of two; rois fp32, cls_prob and bbox_pred bf16) and
+train (``compute_dtype="bfloat16"`` on the fp32 model of phase 4: fp32
+masters, momentum and BatchNorm statistics; 2 warm-up steps, the second
+recording the backward kernels' inputs, and 3 timed steps at batch 1), each
+with its launch counts checked per request or step; phase 5 then holds the
+four bf16 kernel instances against their plain versions on the bf16 path's
+calls, each bf16 output within one bf16 ulp.
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -129,18 +140,23 @@ def make_request(gen, infos, shape, dev):
     return data, torch.tensor(infos, dtype=torch.float32).to(dev)
 
 
-def check_answer(net, out, im_info):
+def check_answer(net, out, im_info, dtype=torch.float32):
+    """Shapes, dtypes (rois fp32; cls_prob and bbox_pred in the model's
+    ``dtype``), finite values, probabilities and roi corners."""
     rois, prob, bbox = out
     B = im_info.shape[0]
     R = B * net.rpn_post_nms
-    for t, shape, name in ((rois, (R, 5), "rois"), (prob, (R, net.classes + 1), "cls_prob"),
-                           (bbox, (R, 8), "bbox_pred")):
-        if tuple(t.shape) != shape:
-            fail("%s has shape %s, expected %s" % (name, tuple(t.shape), shape))
+    for t, shape, name, dt in ((rois, (R, 5), "rois", torch.float32),
+                               (prob, (R, net.classes + 1), "cls_prob", dtype),
+                               (bbox, (R, 8), "bbox_pred", dtype)):
+        if tuple(t.shape) != shape or t.dtype != dt:
+            fail("%s is %s %s, expected %s %s" % (name, t.dtype, tuple(t.shape), dt, shape))
         if not bool(torch.isfinite(t).all()):
             fail("%s has non-finite values" % name)
-    err = float((prob.sum(-1) - 1).abs().max())
-    if err > 1e-5:
+    # each bf16 probability is rounded once from the fp32 softmax: the row
+    # sums to 1 within 2^-9
+    err = float((prob.float().sum(-1) - 1).abs().max())
+    if err > (1e-5 if dtype == torch.float32 else 2.0 ** -9):
         fail("cls_prob rows sum to 1 only within %g" % err)
     info = im_info.repeat_interleave(net.rpn_post_nms, 0)
     if not torch.equal(rois[:, 0], torch.arange(B, device=rois.device)
@@ -156,25 +172,29 @@ def check_answer(net, out, im_info):
         fail("%d rois have corners outside the image" % int((~inside).sum()))
 
 
-def per_forward(net):
+def per_forward(net, bf16=False):
     """Launches of each kernel in one inference forward: one dconv per
     deformable conv (the three res5 units), one NMS over the batch, one
-    A-build per pooling, and no backward kernel."""
+    A-build per pooling, and no backward kernel; in bf16 the dconv and
+    A-build launches are their bf16 instances'."""
     from mxnet_tpu_torch.gluon.model_zoo import DeformableConv2D
+    from mxnet_tpu_torch.ops import kernels
 
     n_dconv = sum(isinstance(m, DeformableConv2D) for m in net.modules())
-    return {"nms_alive": 1, "dconv_col": n_dconv, "psroi_abuild": 3,
-            "dconv_col_bwd": 0, "psroi_abuild_bwd": 0, "quantize_int8": 0,
-            "dequantize_int8": 0}
+    tag = "[bf16]" if bf16 else ""
+    want = {"nms_alive": 1, "dconv_col" + tag: n_dconv, "psroi_abuild" + tag: 3}
+    return {n: want.get(n, 0) for n in kernels.KERNELS}
 
 
-def per_train_step(net):
+def per_train_step(net, bf16=False):
     """Launches of each kernel in one train step: the forward's, one dconv
     backward per deformable conv, and one A-build backward for each of the
     two poolings whose offsets carry a gradient (the offset pooling itself
     samples at fixed points: its yv/xv carry none)."""
-    fwd = per_forward(net)
-    return dict(fwd, dconv_col_bwd=fwd["dconv_col"], psroi_abuild_bwd=2)
+    tag = "[bf16]" if bf16 else ""
+    fwd = per_forward(net, bf16)
+    return dict(fwd, **{"dconv_col_bwd" + tag: fwd["dconv_col" + tag],
+                        "psroi_abuild_bwd" + tag: 2})
 
 
 def counts(kernels):
@@ -239,6 +259,25 @@ def train_noise(net, batch, gen, dev):
             for s in train_fused.noise_shapes(net, batch)]
 
 
+def checked_step(kernels, step, inputs, noise, expect, what):
+    """One train step on ``inputs`` and the noise ``noise()`` draws: its
+    host-clock ms (ended by a synchronize), loss and parts; fails unless the
+    loss is fp32, the parts finite and the kernels' launches ``expect``."""
+    before = counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, parts = step(*inputs, *noise(), LR)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    parts = parts.tolist()
+    if loss.dtype != torch.float32 or not all(math.isfinite(v) for v in parts):
+        fail("%s: loss %s, parts not finite fp32: %s" % (what, loss.dtype, parts))
+    got = {n: c - before[n] for n, c in counts(kernels).items()}
+    if got != expect:
+        fail("%s: kernel launches %s, expected %s" % (what, got, expect))
+    return ms, float(loss), parts
+
+
 def phase_train(kernels, net, dev, card):
     """The main path's train step at full width: see the module docstring."""
     from mxnet_tpu_torch import train_fused
@@ -256,20 +295,9 @@ def phase_train(kernels, net, dev, card):
     probes.append(net.rfcn_trans.weight)
     expect = per_train_step(net)
 
-    def checked_step(step, inputs, batch, what):
-        before = counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, parts = step(*inputs, *train_noise(net, batch, nz_gen, dev), LR)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        parts = parts.tolist()
-        if not all(math.isfinite(v) for v in parts):
-            fail("%s: loss parts not finite: %s" % (what, parts))
-        got = {n: c - before[n] for n, c in counts(kernels).items()}
-        if got != expect:
-            fail("%s: kernel launches %s, expected %s" % (what, got, expect))
-        return ms, float(loss), parts
+    def one_step(step, inputs, batch, what):
+        return checked_step(kernels, step, inputs,
+                            lambda: train_noise(net, batch, nz_gen, dev), expect, what)
 
     step1 = train_fused.make_rfcn_train_step(net, 1, learning_rate=LR, momentum=0.9)
     inputs1 = train_inputs(net, rng, 1, dev)
@@ -278,8 +306,7 @@ def phase_train(kernels, net, dev, card):
     bwd_names = [n for n in kernels.KERNELS if n.endswith("_bwd")]
     for i in range(2):  # (and the step's NMS call, compared beside the serve one)
         out = []
-        run = lambda: out.append(checked_step(step1, inputs1, 1,
-                                              "warm-up step %d" % (i + 1)))
+        run = lambda: out.append(one_step(step1, inputs1, 1, "warm-up step %d" % (i + 1)))
         if i == 1:
             captured = capture_calls(kernels, bwd_names + ["nms_alive"], run)
             train_nms = captured.pop("nms_alive")
@@ -290,13 +317,12 @@ def phase_train(kernels, net, dev, card):
     kernels.reset_launches()
     times = []
     for i in range(5):
-        ms, loss, parts = checked_step(step1, inputs1, 1, "step %d" % (i + 1))
+        ms, loss, parts = one_step(step1, inputs1, 1, "step %d" % (i + 1))
         times.append(ms)
         say("train step %d: batch 1, %.2f ms, loss %.4f (rpn_cls %.4f rpn_bbox "
             "%.4f rcnn_cls %.4f rcnn_bbox %.4f)" % (i + 1, ms, loss, *parts))
     step2 = train_fused.make_rfcn_train_step(net, 2, learning_rate=LR, momentum=0.9)
-    ms2, loss, parts = checked_step(step2, train_inputs(net, rng, 2, dev), 2,
-                                    "batch-2 step")
+    ms2, loss, parts = one_step(step2, train_inputs(net, rng, 2, dev), 2, "batch-2 step")
     say("train step: batch 2 (first at this batch size), %.2f ms, loss %.4f"
         % (ms2, loss))
     launches = counts(kernels)
@@ -356,8 +382,12 @@ def bound(byte_count, flops):
 
 def work(name, args, out):
     """(bytes, float32 operations) of one call, from its inputs and output:
-    each input read once, each output written once."""
-    nbytes = lambda *ts: 4 * sum(t.numel() for t in ts)
+    each input read once, each output written once, at its element size (a
+    bf16 instance's bf16 tensors count 2 bytes an element; the fp32 buffer
+    that the bf16 dconv backward sums d_ft in is scratch, not counted).  The
+    bf16 instances compute in fp32 on the CUDA cores, as the fp32 ones do."""
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    name = name.split("[")[0]
     if name == "dconv_col":
         y0, ft = args[0], args[7]
         return (nbytes(*args[:8], out),
@@ -368,7 +398,7 @@ def work(name, args, out):
         # scattered corner weights 8
         return nbytes(*args[:9], *out), y0.numel() * ft.shape[2] * 31
     if name == "psroi_abuild":
-        yv, xv = args
+        yv, xv = args[:2]
         N, S, H = yv.shape
         return nbytes(yv, xv, out), 2 * N * S * H * xv.shape[2]
     if name == "psroi_abuild_bwd":
@@ -399,19 +429,29 @@ def capture_calls(kernels, names, run):
             return fn(*args, **kw)
         return wrapper
 
+    def attr(name):  # a bf16 row's wrapper: dconv_col_bf16 for dconv_col[bf16]
+        return kernels.KERNELS[name].wrapper.__name__
+
     for name in names:
-        setattr(kernels, name, capture(name, kernels.KERNELS[name].wrapper))
+        setattr(kernels, attr(name), capture(name, kernels.KERNELS[name].wrapper))
     try:
         run()
     finally:
         for name in names:
-            setattr(kernels, name, kernels.KERNELS[name].wrapper)
+            setattr(kernels, attr(name), kernels.KERNELS[name].wrapper)
     torch.cuda.synchronize()
     return captured
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significand bits)."""
+    e = torch.frexp(x.float().abs().clamp(min=2.0 ** -126)).exponent
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
 def compare(name, got, ref):
     """Max |kernel − plain| over the outputs; fail beyond the tolerance."""
+    base = name.split("[")[0]
     if name in ("nms_alive",) + INT8_PAIR:
         # bit for bit (NaN cannot come out of either: quantize makes it 0,
         # and the dequantize ranges are finite)
@@ -421,12 +461,28 @@ def compare(name, got, ref):
         return 0.0
     err = 0.0
     for a, b in zip(*((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))):
-        scale = float(b.abs().max())
-        if name == "dconv_col_bwd":
+        scale = float(b.float().abs().max())
+        if a.dtype == torch.bfloat16:
+            # within one bf16 ulp: fp32 sums of the same products in another
+            # order, rounded once; d_ft's atomics may also cancel, so it
+            # keeps the fp32 row's absolute slack
+            slack = 1e-5 * scale if base == "dconv_col_bwd" else 0.0
+            if a.dtype != b.dtype:
+                fail("%s: a %s output against %s" % (name, a.dtype, b.dtype))
+            diff = (a.float() - b.float()).abs()
+            bad = int((diff > bf16_ulp(b) + slack).sum())
+            if bad:
+                fail("%s: %d of %d bf16 values more than one ulp from the plain "
+                     "version" % (name, bad, a.numel()))
+            say("  %s: %d of %d bf16 values not bit-equal to the plain version"
+                % (name, int((a != b).sum()), a.numel()))
+            err = max(err, float(diff.max()))
+            continue
+        if base == "dconv_col_bwd":
             # sums over C in another order, and d_ft summed by atomics in an
             # order that changes from run to run
             rtol, atol = 1e-4, 1e-5 * scale
-        elif name == "psroi_abuild_bwd":
+        elif base == "psroi_abuild_bwd":
             # fixed-order fp32 sums over 38 rows and 64 columns (fused
             # multiply-add chains and a shuffle tree) against torch's sums
             rtol, atol = 1e-5, 1e-5 * scale
@@ -438,23 +494,27 @@ def compare(name, got, ref):
     return err
 
 
-def phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev):
+def phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev, bf16=False):
     """Each R-FCN kernel against its plain version on the calls of a real
     run: an inference forward for the forward kernels, and for the backward
     kernels the calls ``phase_train`` recorded in one of its batch-1 steps
     (NMS is compared on that step's call too, and timed on the serve call).
-    (The int8 pair's rows come from ``phase_int8``'s calls.)"""
+    With ``bf16``, the bf16 instances on the bf16 path's calls (``net`` the
+    bf16 serve model, the backward calls from ``phase_train_bf16``; NMS has
+    its row already).  (The int8 pair's rows come from ``phase_int8``'s
+    calls.)"""
     H, W = net.image_shape
     gen = torch.Generator().manual_seed(SEED + 3)
     data, im_info = make_request(gen, [[H, W, 1.0]], net.image_shape, dev)
-    expect = per_forward(net)
-    fwd_names = [n for n, c in expect.items() if c]
+    data = data.to(net.rfcn_cls.weight.dtype)
+    expect = per_forward(net, bf16)
+    fwd_names = [n for n, c in expect.items() if c and not (bf16 and n == "nms_alive")]
     captured = capture_calls(kernels, fwd_names, lambda: net(data, im_info))
     captured.update(bwd_captured)
-    expect.update({n: per_train_step(net)[n] for n in bwd_captured})
+    expect.update({n: per_train_step(net, bf16)[n] for n in bwd_captured})
     rows = []
     for name in fwd_names + list(bwd_captured):
-        main = "train" if name in bwd_captured else "serve"
+        main = ("train" if name in bwd_captured else "serve") + ("_bf16" if bf16 else "")
         with torch.no_grad():  # the captured backward inputs carry a graph
             rows.append(kernel_row(name, kernels.KERNELS[name], captured[name],
                                    expect[name], launches, main,
@@ -473,6 +533,17 @@ NO_LIBRARY_CALL = {
                      "and the four-corner scatter together",
     "quantize_int8": "torch.quantize_per_tensor rounds half to even, with a "
                      "zero point",
+    "dconv_col[bf16]": "no single torch call samples a bilinear four-corner gather "
+                       "at per-row corners (grid_sample takes another layout and "
+                       "clamp rule)",
+    "dconv_col_bwd[bf16]": "no single torch call computes the three masked row "
+                           "sums and the four-corner scatter together",
+    "psroi_abuild[bf16]": "no single torch call: torch.bmm of the fp32 factors "
+                          "writes an fp32 A, and rounding it to bf16 is a second "
+                          "call (the fp32 row times torch.bmm)",
+    "psroi_abuild_bwd[bf16]": "no single torch call: torch.bmm takes no bf16 g "
+                              "beside fp32 factors without a cast first (the fp32 "
+                              "row times torch.bmm)",
 }
 
 
@@ -501,7 +572,7 @@ def kernel_row(name, k, calls, expected, launches, main, extra_calls=(),
                        3 if name == "nms_alive" else 5)
     library_ms = None
     if name == "psroi_abuild":
-        yv, xv = args
+        yv, xv = args[:2]  # the out_dtype may follow
         library_ms = time_ms(lambda: torch.bmm(yv.transpose(1, 2), xv), 20)
     elif name == "psroi_abuild_bwd":
         yv, xv, g = args
@@ -541,6 +612,143 @@ def kernel_row(name, k, calls, expected, launches, main, extra_calls=(),
                 float((ly != 0).float().mean()), float(lf.mean()),
                 tuple(out.stride()), row["layout_copy_ms"]))
     return row
+
+
+def phase_serve_bf16(kernels, dev):
+    """The serve path in bf16 at full width: see the module docstring."""
+    from mxnet_tpu_torch.gluon.model_zoo import rfcn_resnet101
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 21)
+    net = rfcn_resnet101(device="cuda", generator=gen, **FULL)
+    randomize_deformable(net, gen)
+    net.cast("bfloat16")
+    if any(t.dtype != bf for t in net.state_dict().values()):
+        fail("serve bf16: cast left a parameter or buffer outside bf16")
+    expect = per_forward(net, bf16=True)
+    H, W = net.image_shape
+    requests = [[[H, W, 1.0]]] * 3 + [[[H, W, 1.0], [H - 32, W - 64, 1.0]]]
+
+    def request(infos):
+        data, im_info = make_request(gen, infos, (H, W), dev)
+        return data.to(bf), im_info
+
+    for infos in (requests[0], requests[-1]):  # cuDNN and allocator set-up
+        net(*request(infos))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i, infos in enumerate(requests):
+        data, im_info = request(infos)
+        before = counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net(data, im_info)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_answer(net, out, im_info, bf)
+        got = {n: c - before[n] for n, c in counts(kernels).items()}
+        if got != expect:
+            fail("bf16 forward launched %s, expected %s" % (got, expect))
+        say("bf16 request %d: batch %d, %.2f ms, %d rois, mean top score %.4f" % (
+            i + 1, len(infos), ms, out[0].shape[0],
+            float(out[1][:, 1:].float().max(1).values.mean())))
+    launches = counts(kernels)
+    say("serve bf16 launches: %s" % json.dumps(launches))
+    return net, launches
+
+
+def phase_train_bf16(kernels, net, dev, card):
+    """The bf16 train step at full width on the fp32 model: see the module
+    docstring.  Returns the path's launch counts and the backward kernels'
+    calls of the second warm-up step."""
+    from mxnet_tpu_torch import train_fused
+
+    rng = np.random.RandomState(SEED + 22)
+    nz_gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    named = net.gluon_named_tensors()
+    fixed = {n: t.detach().clone() for n, t in named.items()
+             if n.startswith(("conv1_", "res2_"))}
+    expect = per_train_step(net, bf16=True)
+    step = train_fused.make_rfcn_train_step(net, 1, learning_rate=LR, momentum=0.9,
+                                            compute_dtype="bfloat16")
+    inputs = train_inputs(net, rng, 1, dev)
+
+    def one_step(what):
+        return checked_step(kernels, step, inputs, lambda: train_noise(net, 1, nz_gen, dev),
+                            expect, what)
+
+    bwd_names = [n for n in kernels.KERNELS if n.endswith("_bwd[bf16]")]
+    for i in range(2):
+        out = []
+        run = lambda: out.append(one_step("bf16 warm-up step %d" % (i + 1)))
+        if i == 1:
+            captured = capture_calls(kernels, bwd_names, run)
+        else:
+            run()
+        say("train bf16 warm-up step %d: %.2f ms, loss %.4f" % (i + 1, out[0][0], out[0][1]))
+    kernels.reset_launches()
+    times = []
+    for i in range(3):
+        ms, loss, parts = one_step("bf16 step %d" % (i + 1))
+        times.append(ms)
+        say("train bf16 step %d: batch 1, %.2f ms, loss %.4f (rpn_cls %.4f rpn_bbox "
+            "%.4f rcnn_cls %.4f rcnn_bbox %.4f)" % (i + 1, ms, loss, *parts))
+    launches = counts(kernels)
+    kinds = {(p.dtype, m.dtype) for p, m in zip(step.params, step.momentum)}
+    if kinds != {(torch.float32, torch.float32)} or any(
+            b.dtype != torch.float32 for b in net.buffers()):
+        fail("train bf16: masters, momentum and BN statistics must stay fp32, got %s" % kinds)
+    for n, t in fixed.items():
+        if not torch.equal(named[n], t):
+            fail("train bf16: %s moved; conv1/res2 must get no gradient" % n)
+    say("train bf16: R-101 on %s, batch 1 median %.2f ms/step (%s); fp32 masters, "
+        "momentum and BN statistics; conv1/res2 fixed" % (
+            card, statistics.median(times), ", ".join("%.2f" % t for t in times)))
+    say("train bf16 launches (3 steps): %s" % json.dumps(launches))
+    return launches, captured
+
+
+def phase_small_input_bf16(dev):
+    """Tiny configuration cast to bf16: the card (kernels) against the CPU
+    (plain versions), stage by stage, each stage fed the CPU's own inputs.
+    Not end to end: bf16 RPN scores tie, and an ulp between the two devices'
+    convolutions can reorder the proposals."""
+    from mxnet_tpu_torch.gluon.model_zoo import DeformableRFCN
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 23)
+    cpu = DeformableRFCN(device="cpu", generator=gen, **TINY)
+    randomize_deformable(cpu, gen)
+    gpu = DeformableRFCN(device="cuda", **TINY)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.cast(bf)
+    gpu.cast(bf)
+    data = torch.randn((2, 3) + cpu.image_shape, generator=gen).to(bf)
+    info = torch.tensor([[64, 96, 1.0], [48, 80, 1.0]])
+    g = lambda t: t.to(dev)
+    with torch.inference_mode():
+        c4, c5 = cpu._features(data)
+        g4, g5 = gpu._features(g(data))
+        rc, rb = cpu._rpn(c4)
+        grc, grb = gpu._rpn(g(c4))
+        rois = cpu._proposals(rc, rb, info)
+        grois = gpu._proposals(g(rc), g(rb), g(info))
+        cs, bp = cpu._head(c5, rois, rois_per_image=cpu.rpn_post_nms)
+        gcs, gbp = gpu._head(g(c5), g(rois), rois_per_image=cpu.rpn_post_nms)
+    # bf16 maps: cuDNN and the CPU round their fp32 sums to bf16 at other
+    # places, a few ulps apart; the rois come from the same bf16 scores
+    for name, got, ref in (("c4", g4, c4), ("c5", g5, c5), ("rpn_cls", grc, rc),
+                           ("rpn_bbox", grb, rb), ("cls_score", gcs, cs),
+                           ("bbox_pred", gbp, bp)):
+        if got.dtype != bf:
+            fail("small bf16: %s is %s" % (name, got.dtype))
+        torch.testing.assert_close(got.float().cpu(), ref.float(), rtol=2e-2,
+                                   atol=2e-2 * float(ref.float().abs().max()),
+                                   msg=lambda m, n=name: "small bf16 %s: %s" % (n, m))
+    torch.testing.assert_close(grois.cpu(), rois, rtol=0, atol=1e-3,
+                               msg=lambda m: "small bf16 rois: %s" % m)
+    say("small input, bf16: the card agrees with the CPU stage by stage (c4, c5, "
+        "rpn_cls, rpn_bbox, rois, cls_score, bbox_pred)")
 
 
 def phase_small_input(dev):
@@ -898,10 +1106,15 @@ def main():
     phase_build()
     net, gen, serve_launches = phase_serve(kernels, dev)
     train_launches, bwd_captured, train_nms = phase_train(kernels, net, dev, name)
+    net_bf16, serve_bf16_launches = phase_serve_bf16(kernels, dev)
+    train_bf16_launches, bwd_captured_bf16 = phase_train_bf16(kernels, net, dev, name)
     int8_launches, int8_captured, int8_expect = phase_int8(kernels, dev, name)
     launches = {"serve": serve_launches, "train": train_launches,
+                "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
                 "int8": int8_launches}
     rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
+    rows += phase_kernels(kernels, net_bf16, launches, bwd_captured_bf16, (), dev,
+                          bf16=True)
     edge = int8_edge_calls(kernels, dev)
     for pair_name in INT8_PAIR:
         # timed on the call with the most elements: its 100 MB of float32
@@ -912,10 +1125,11 @@ def main():
         rows.append(kernel_row(pair_name, kernels.KERNELS[pair_name], calls,
                                int8_expect[pair_name], launches, "int8",
                                extra_calls=edge[pair_name], timed_call=largest))
-    del net, int8_captured, bwd_captured, train_nms
+    del net, net_bf16, int8_captured, bwd_captured, bwd_captured_bf16, train_nms
     torch.cuda.empty_cache()
     phase_small_input(dev)
     phase_small_train(dev)
+    phase_small_input_bf16(dev)
     phase_small_int8(dev)
     say("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": rows}), flush=True)

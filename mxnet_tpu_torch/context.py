@@ -15,16 +15,23 @@ __all__ = ["full_fp32", "resolve_device"]
 
 @contextlib.contextmanager
 def full_fp32():
-    """TF32 off for cuDNN convolutions and float32 matmuls inside the block,
-    the caller's settings restored after it.  PyTorch lets cuDNN use TF32 by
-    default; the port computes in full fp32, as the JAX reference does."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Full fp32 arithmetic and accumulation inside the block, the caller's
+    settings restored after it: TF32 off for cuDNN convolutions and float32
+    matmuls, and cuBLAS's reduced-precision (bf16) reductions off for
+    bfloat16 matmuls.  PyTorch allows all three by default; the JAX
+    reference computes fp32 in full fp32 and accumulates bf16 products in
+    fp32."""
+    mm = torch.backends.cuda.matmul
+    old = (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+           mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+        (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = old
 
 
 def resolve_device(device=None):

@@ -68,6 +68,18 @@ class HybridBlock(torch.nn.Module):
         finally:
             _scope.block = old
 
+    def cast(self, dtype):
+        """Cast every floating parameter and buffer (BatchNorm's running
+        statistics included) to ``dtype``, a ``torch.dtype`` or its name
+        (``"bfloat16"``), in place; returns the block.  Counterpart of the
+        JAX ``Block.cast``, whose ``Parameter.cast`` casts the running
+        statistics too."""
+        if isinstance(dtype, str):
+            dtype = getattr(torch, dtype)
+        if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
+            raise ValueError("cast: a floating dtype is needed, got %r" % (dtype,))
+        return self.to(dtype=dtype)
+
     def gluon_named_tensors(self):
         """{Gluon name relative to this block: parameter or buffer}."""
         out = {}

@@ -147,9 +147,16 @@ class DeformableRFCN(HybridBlock):
     the uniform noise that drives the target subsampling (the caller draws
     it).  The sampled rois (B·batch_rois) carry no gradient.
 
-    Both forwards compute in full fp32: they turn TF32 off for their
-    convolutions and matmuls and restore the caller's setting after
-    (``context.full_fp32``).
+    Both forwards compute in the dtype of the parameters and of ``data``,
+    which must agree: float32, or bfloat16 after ``cast("bfloat16")`` (or
+    under the bf16 train step, which hands bf16 copies of the fp32 weights
+    in).  Box and coordinate math stays fp32 either way: ``im_info``,
+    ``gt_boxes`` and the noise are fp32, MultiProposal upcasts its inputs,
+    so the rois and every target are fp32, and the PS-ROI sample
+    coordinates are fp32.  In bf16 the rois come out fp32 and cls_prob and
+    bbox_pred bf16, as the JAX model's.  Both forwards turn TF32 and
+    cuBLAS's reduced-precision bf16 reductions off and restore the caller's
+    settings after (``context.full_fp32``).
 
     Parameters
     ----------
@@ -334,6 +341,10 @@ class DeformableRFCN(HybridBlock):
         B = data.shape[0]
         self._check("data", data, (B, 3, H, W))
         self._check("im_info", im_info, (B, 3))
+        dtype = self.rfcn_cls.weight.dtype
+        if data.dtype != dtype:
+            raise ValueError("data is %s and the model's parameters %s: cast "
+                             "one to the other" % (data.dtype, dtype))
         if gt_boxes is None:
             with torch.inference_mode(), full_fp32():
                 c4, c5 = self._features(data)

@@ -40,11 +40,23 @@
 // Other shapes take a simple kernel that writes the same layout: one thread
 // per output element, threads along n.
 //
+// The bf16 instance (mx_dconv_col_bf16: bf16 ft and col, the factors as
+// for fp32) follows the contract of the TPU kernel's bf16 instance
+// (_dconv_fwd_kernel_factory with dot_dtype bf16): per corner the one-hot
+// weight A = yfac xfac lf in fp32 (the two weights of a clamped corner
+// merged into one, as the one-hot compare merges them), rounded to bf16;
+// its products with ft, exact in fp32, summed in fp32 in corner order and
+// rounded once to the bf16 column.  The same two designs, templated on the
+// element type: 8-byte loads of four bf16 channels and 8-byte stores of four
+// bf16 rows.  Its bound at the res5 call is half the fp32 one: 22.4 MB of
+// col, 2.5 MB of ft and 2.5 MB of factors, about 8 us at 3.35 TB/s.
+//
 // Contract: y0, y1 in [0, H), x0, x1 in [0, W).  The port's only caller
 // (ops/detection.py deformable_convolution) builds them clamped to the map.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtype.cuh"
 #include "pipeline.cuh"
 
 namespace {
@@ -59,22 +71,53 @@ constexpr int kGroups = kTileN / (kWarps * kGroup);
 static_assert(kTileN % (kWarps * kGroup) == 0, "a warp owns whole groups");
 static_assert(kChunks >= 8, "the swizzle spans 8 chunks");
 
-__device__ __forceinline__ float sample(float live, float w00, float w01,
-                                        float w10, float w11, float a, float b,
-                                        float c, float d) {
-  return live * (w00 * a + w01 * b + w10 * c + w11 * d);
-}
+// One row's combination of its four corner values f00, f01, f10, f11 (the
+// corners' flags: y1 == y0, x1 == x0).
+template <typename T>
+struct Mix;
+
+// fp32: lf ((1-ly)(1-lx) f00 + (1-ly) lx f01 + ly (1-lx) f10 + ly lx f11)
+template <>
+struct Mix<float> {
+  float live, w00, w01, w10, w11;
+  __device__ __forceinline__ Mix(float fy, float fx, float lv, bool, bool)
+      : live(lv), w00((1.f - fy) * (1.f - fx)), w01((1.f - fy) * fx),
+        w10(fy * (1.f - fx)), w11(fy * fx) {}
+  __device__ __forceinline__ float operator()(float a, float b, float c, float d) const {
+    return live * (w00 * a + w01 * b + w10 * c + w11 * d);
+  }
+};
+
+// bf16: the one-hot weights A = yfac xfac lf rounded to bf16, a clamped
+// corner's weight on its first corner and 0 on the second; the products are
+// exact in fp32
+template <>
+struct Mix<mx::bf16> {
+  float a00, a01, a10, a11;
+  __device__ __forceinline__ Mix(float fy, float fx, float lv, bool ysame, bool xsame) {
+    const float wy0 = ysame ? (1.f - fy) + fy : 1.f - fy, wy1 = ysame ? 0.f : fy;
+    const float wx0 = xsame ? (1.f - fx) + fx : 1.f - fx, wx1 = xsame ? 0.f : fx;
+    a00 = mx::round_bf16(wy0 * wx0 * lv);
+    a01 = mx::round_bf16(wy0 * wx1 * lv);
+    a10 = mx::round_bf16(wy1 * wx0 * lv);
+    a11 = mx::round_bf16(wy1 * wx1 * lv);
+  }
+  __device__ __forceinline__ float operator()(float a, float b, float c, float d) const {
+    return a00 * a + a01 * b + a10 * c + a11 * d;
+  }
+};
 
 // the shared tile's chunk for channel `ch`, chunk `q` of its row
 __device__ __forceinline__ int swizzle(int ch, int q) { return q ^ ((ch >> 2) & 7); }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 dconv_col_tiled_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
                        const int* __restrict__ x0, const int* __restrict__ x1,
                        const float* __restrict__ ly, const float* __restrict__ lx,
-                       const float* __restrict__ lf, const float* __restrict__ ft,
+                       const float* __restrict__ lf, const T* __restrict__ ft,
                        long long tiles, int n, int w, int hw, int c,
-                       float* __restrict__ col) {
+                       T* __restrict__ col) {
   __shared__ float4 tile[kChunkC][kChunks];
   __shared__ __align__(16) int corner[2][4][kTileN];   // y0, y1, x0, x1
   __shared__ __align__(16) float lerp[2][3][kTileN];   // ly, lx, lf
@@ -118,8 +161,8 @@ dconv_col_tiled_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
     const long long bg = t / tiles_per_bg;
     const int n0 = (int)(t % tiles_per_bg) * kTileN;
     const int rows = min(kTileN, n - n0);  // a multiple of 4
-    const float* f = ft + bg * hw * (long long)c;
-    float* out = col + bg * (long long)c * n + n0;
+    const T* f = ft + bg * hw * (long long)c;
+    T* out = col + bg * (long long)c * n + n0;
     for (int c0 = 0; c0 < c; c0 += kChunkC) {
       const int cw = min(kChunkC, c - c0);  // a multiple of 4
       const int ch = 4 * lane;              // this lane's first channel of the pass
@@ -134,27 +177,23 @@ dconv_col_tiled_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
             const int r = r0 + i;
             const int a0 = corner[s][0][r] * w, a1 = corner[s][1][r] * w;
             const int b0 = corner[s][2][r], b1 = corner[s][3][r];
-            const float* q = f + c0 + ch;
-            p[i][0] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a0 + b0) * c));
-            p[i][1] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a0 + b1) * c));
-            p[i][2] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a1 + b0) * c));
-            p[i][3] = __ldg(reinterpret_cast<const float4*>(q + (long long)(a1 + b1) * c));
+            const T* q = f + c0 + ch;
+            p[i][0] = mx::ldg4(q + (long long)(a0 + b0) * c);
+            p[i][1] = mx::ldg4(q + (long long)(a0 + b1) * c);
+            p[i][2] = mx::ldg4(q + (long long)(a1 + b0) * c);
+            p[i][3] = mx::ldg4(q + (long long)(a1 + b1) * c);
           }
           float o[4][kGroup];  // [channel][row]
 #pragma unroll
           for (int i = 0; i < kGroup; ++i) {
             const int r = r0 + i;
-            const float fy = lerp[s][0][r];
-            const float fx = lerp[s][1][r];
-            const float live = lerp[s][2][r];
-            const float w00 = (1.f - fy) * (1.f - fx);
-            const float w01 = (1.f - fy) * fx;
-            const float w10 = fy * (1.f - fx);
-            const float w11 = fy * fx;
-            o[0][i] = sample(live, w00, w01, w10, w11, p[i][0].x, p[i][1].x, p[i][2].x, p[i][3].x);
-            o[1][i] = sample(live, w00, w01, w10, w11, p[i][0].y, p[i][1].y, p[i][2].y, p[i][3].y);
-            o[2][i] = sample(live, w00, w01, w10, w11, p[i][0].z, p[i][1].z, p[i][2].z, p[i][3].z);
-            o[3][i] = sample(live, w00, w01, w10, w11, p[i][0].w, p[i][1].w, p[i][2].w, p[i][3].w);
+            const Mix<T> m(lerp[s][0][r], lerp[s][1][r], lerp[s][2][r],
+                           corner[s][0][r] == corner[s][1][r],
+                           corner[s][2][r] == corner[s][3][r]);
+            o[0][i] = m(p[i][0].x, p[i][1].x, p[i][2].x, p[i][3].x);
+            o[1][i] = m(p[i][0].y, p[i][1].y, p[i][2].y, p[i][3].y);
+            o[2][i] = m(p[i][0].z, p[i][1].z, p[i][2].z, p[i][3].z);
+            o[3][i] = m(p[i][0].w, p[i][1].w, p[i][2].w, p[i][3].w);
           }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -166,10 +205,7 @@ dconv_col_tiled_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
       // whole channel rows of col: kChunks 16-byte pieces a channel
       for (int e = tid; e < cw * kChunks; e += kThreads) {
         const int cc = e / kChunks, q = e % kChunks;
-        if (4 * q < rows) {
-          __stcs(reinterpret_cast<float4*>(out + (long long)(c0 + cc) * n + 4 * q),
-                 tile[cc][swizzle(cc, q)]);
-        }
+        if (4 * q < rows) mx::stcs4(out + (long long)(c0 + cc) * n + 4 * q, tile[cc][swizzle(cc, q)]);
       }
       __syncthreads();
     }
@@ -178,6 +214,7 @@ dconv_col_tiled_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
 
 // any C, N and alignment: one thread per output element, in col's
 // channel-major order (threads along n)
+template <typename T>
 __global__ void dconv_col_kernel(const int* __restrict__ y0,
                                  const int* __restrict__ y1,
                                  const int* __restrict__ x0,
@@ -185,26 +222,52 @@ __global__ void dconv_col_kernel(const int* __restrict__ y0,
                                  const float* __restrict__ ly,
                                  const float* __restrict__ lx,
                                  const float* __restrict__ lf,
-                                 const float* __restrict__ ft, long long total,
+                                 const T* __restrict__ ft, long long total,
                                  int n, int w, int hw, int c,
-                                 float* __restrict__ col) {
+                                 T* __restrict__ col) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += stride) {
     const long long bgc = e / n;
     const long long r = (bgc / c) * n + e % n;  // the factors' row
     const int k = (int)(bgc % c);
-    const float fy = ly[r];
-    const float fx = lx[r];
-    const float w00 = (1.f - fy) * (1.f - fx);
-    const float w01 = (1.f - fy) * fx;
-    const float w10 = fy * (1.f - fx);
-    const float w11 = fy * fx;
-    const float* f = ft + (bgc / c) * hw * (long long)c + k;
+    const Mix<T> m(ly[r], lx[r], lf[r], y0[r] == y1[r], x0[r] == x1[r]);
+    const T* f = ft + (bgc / c) * hw * (long long)c + k;
     const long long a0 = (long long)y0[r] * w, a1 = (long long)y1[r] * w;
-    col[e] = sample(lf[r], w00, w01, w10, w11, f[(a0 + x0[r]) * c],
-                    f[(a0 + x1[r]) * c], f[(a1 + x0[r]) * c], f[(a1 + x1[r]) * c]);
+    mx::store(col + e, m(mx::to_float(f[(a0 + x0[r]) * c]), mx::to_float(f[(a0 + x1[r]) * c]),
+                         mx::to_float(f[(a1 + x0[r]) * c]), mx::to_float(f[(a1 + x1[r]) * c])));
   }
+}
+
+template <typename T>
+int dconv_col(const void* y0, const void* y1, const void* x0, const void* x1,
+              const void* ly, const void* lx, const void* lf, const void* ft, void* col,
+              int bg, int n, int h, int w, int c, int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* iy0 = static_cast<const int*>(y0);
+  const auto* iy1 = static_cast<const int*>(y1);
+  const auto* ix0 = static_cast<const int*>(x0);
+  const auto* ix1 = static_cast<const int*>(x1);
+  const auto* fly = static_cast<const float*>(ly);
+  const auto* flx = static_cast<const float*>(lx);
+  const auto* flf = static_cast<const float*>(lf);
+  const auto* fft = static_cast<const T*>(ft);
+  T* out = static_cast<T*>(col);
+  if (vec) {
+    const long long tiles = (long long)bg * ((n + kTileN - 1) / kTileN);
+    int blocks = 0;
+    cudaError_t err =
+        mx::persistent_grid(dconv_col_tiled_kernel<T>, kThreads, 0, tiles, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dconv_col_tiled_kernel<T><<<blocks, kThreads, 0, st>>>(
+        iy0, iy1, ix0, ix1, fly, flx, flf, fft, tiles, n, w, h * w, c, out);
+  } else {
+    const long long total = (long long)bg * n * c;
+    const long long blocks = std::min<long long>((total + kThreads - 1) / kThreads, 1 << 20);
+    dconv_col_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
+        iy0, iy1, ix0, ix1, fly, flx, flf, fft, total, n, w, h * w, c, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -216,28 +279,14 @@ extern "C" int mx_dconv_col(const void* y0, const void* y1, const void* x0,
                             const void* x1, const void* ly, const void* lx,
                             const void* lf, const void* ft, void* col, int bg,
                             int n, int h, int w, int c, int vec, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* iy0 = static_cast<const int*>(y0);
-  const auto* iy1 = static_cast<const int*>(y1);
-  const auto* ix0 = static_cast<const int*>(x0);
-  const auto* ix1 = static_cast<const int*>(x1);
-  const auto* fly = static_cast<const float*>(ly);
-  const auto* flx = static_cast<const float*>(lx);
-  const auto* flf = static_cast<const float*>(lf);
-  const auto* fft = static_cast<const float*>(ft);
-  float* out = static_cast<float*>(col);
-  if (vec) {
-    const long long tiles = (long long)bg * ((n + kTileN - 1) / kTileN);
-    int blocks = 0;
-    cudaError_t err = mx::persistent_grid(dconv_col_tiled_kernel, kThreads, 0, tiles, &blocks);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dconv_col_tiled_kernel<<<blocks, kThreads, 0, st>>>(
-        iy0, iy1, ix0, ix1, fly, flx, flf, fft, tiles, n, w, h * w, c, out);
-  } else {
-    const long long total = (long long)bg * n * c;
-    const long long blocks = std::min<long long>((total + kThreads - 1) / kThreads, 1 << 20);
-    dconv_col_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-        iy0, iy1, ix0, ix1, fly, flx, flf, fft, total, n, w, h * w, c, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dconv_col<float>(y0, y1, x0, x1, ly, lx, lf, ft, col, bg, n, h, w, c, vec, stream);
+}
+
+// The same with ft and col bf16 (the bf16 contract above).
+extern "C" int mx_dconv_col_bf16(const void* y0, const void* y1, const void* x0,
+                                 const void* x1, const void* ly, const void* lx,
+                                 const void* lf, const void* ft, void* col, int bg,
+                                 int n, int h, int w, int c, int vec, void* stream) {
+  return dconv_col<mx::bf16>(y0, y1, x0, x1, ly, lx, lf, ft, col, bg, n, h, w, c, vec,
+                             stream);
 }

@@ -42,11 +42,25 @@
 // an order that changes from run to run, so d_ft agrees with a fixed-order
 // sum to rounding, not bitwise.  No fast-math: fp32 throughout, as the TPU
 // kernel pins HIGHEST precision for fp32.
+//
+// The bf16 instance (mx_dconv_col_bwd_bf16: bf16 ft, g and d_ft) follows
+// the TPU kernel's bf16 contract (_dconv_bwd_kernel_factory, _dconv_bwd):
+// dA and the three row sums in fp32 from the bf16 values and the fp32
+// factors, written fp32; d_ft = bf16(A)^T g, where each corner's scatter
+// weight is the forward's one-hot weight rounded to bf16 (a clamped
+// corner's two weights merged), accumulated in fp32 over every row, in an
+// fp32 buffer that the caller passes, and rounded once to bf16 at the end
+// by a second kernel.  Both designs, templated on the element type: the
+// tiled one stages its ft window in bf16 (8-byte cp.async copies, half the
+// window's room) and converts four channels as it reads them, and takes
+// the merged bf16 weights as its corners' scatter weights, so a clamped
+// corner's second weight is 0 and adds nothing.
 #include <climits>
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtype.cuh"
 #include "pipeline.cuh"
 
 namespace {
@@ -58,14 +72,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// A row's four scatter weights, for d_ft: fp32 w_ij lf; bf16 the forward's
+// one-hot weights, a clamped corner's merged on its first corner, rounded
+// to bf16
+template <typename T>
+__device__ __forceinline__ float4 scatter_weights(float fy, float fx, float live, bool,
+                                                  bool) {
+  return make_float4((1.f - fy) * (1.f - fx) * live, (1.f - fy) * fx * live,
+                     fy * (1.f - fx) * live, fy * fx * live);
+}
+
+template <>
+__device__ __forceinline__ float4 scatter_weights<mx::bf16>(float fy, float fx, float live,
+                                                            bool ysame, bool xsame) {
+  const float wy0 = ysame ? (1.f - fy) + fy : 1.f - fy, wy1 = ysame ? 0.f : fy;
+  const float wx0 = xsame ? (1.f - fx) + fx : 1.f - fx, wx1 = xsame ? 0.f : fx;
+  return make_float4(mx::round_bf16(wy0 * wx0 * live), mx::round_bf16(wy0 * wx1 * live),
+                     mx::round_bf16(wy1 * wx0 * live), mx::round_bf16(wy1 * wx1 * live));
+}
+
 // Row r (of the BG N), by one warp: lanes over the channels, the three row
-// sums reduced by warp shuffles.
+// sums reduced by warp shuffles.  T is the element type of ft and g; d_ft
+// is summed in fp32 (for bf16 the caller's buffer).
+template <typename T>
 __device__ __forceinline__ void bwd_row(
     long long r, int lane, const int* __restrict__ y0, const int* __restrict__ y1,
     const int* __restrict__ x0, const int* __restrict__ x1,
     const float* __restrict__ ly, const float* __restrict__ lx,
-    const float* __restrict__ lf, const float* __restrict__ ft,
-    const float* __restrict__ g, int n, int w, int hw, int c, long long g_row,
+    const float* __restrict__ lf, const T* __restrict__ ft,
+    const T* __restrict__ g, int n, int w, int hw, int c, long long g_row,
     long long g_chan, float* __restrict__ dly, float* __restrict__ dlx,
     float* __restrict__ dlf, float* __restrict__ dft) {
   const long long bg = r / n;
@@ -81,16 +116,17 @@ __device__ __forceinline__ void bwd_row(
   const long long o01 = base + (long long)(y0[r] * w + x1[r]) * c;
   const long long o10 = base + (long long)(y1[r] * w + x0[r]) * c;
   const long long o11 = base + (long long)(y1[r] * w + x1[r]) * c;
-  // scatter weights w_ij lf; a zero weight adds nothing and is skipped
-  const float s00 = w00 * live, s01 = w01 * live, s10 = w10 * live, s11 = w11 * live;
-  const float* gr = g + bg * (long long)n * c + (r - bg * n) * g_row;
+  // scatter weights; a zero weight adds nothing and is skipped
+  const float4 sw = scatter_weights<T>(fy, fx, live, y0[r] == y1[r], x0[r] == x1[r]);
+  const float s00 = sw.x, s01 = sw.y, s10 = sw.z, s11 = sw.w;
+  const T* gr = g + bg * (long long)n * c + (r - bg * n) * g_row;
   float acc_y = 0.f, acc_x = 0.f, acc_f = 0.f;
   for (int k = lane; k < c; k += 32) {
-    const float gk = gr[k * g_chan];
-    const float f00 = ft[o00 + k];
-    const float f01 = ft[o01 + k];
-    const float f10 = ft[o10 + k];
-    const float f11 = ft[o11 + k];
+    const float gk = mx::to_float(gr[k * g_chan]);
+    const float f00 = mx::to_float(ft[o00 + k]);
+    const float f01 = mx::to_float(ft[o01 + k]);
+    const float f10 = mx::to_float(ft[o10 + k]);
+    const float f11 = mx::to_float(ft[o11 + k]);
     acc_y += gk * ((1.f - fx) * (f10 - f00) + fx * (f11 - f01));
     acc_x += gk * ((1.f - fy) * (f01 - f00) + fy * (f11 - f10));
     acc_f += gk * (w00 * f00 + w01 * f01 + w10 * f10 + w11 * f11);
@@ -109,18 +145,28 @@ __device__ __forceinline__ void bwd_row(
   }
 }
 
+template <typename T>
 __global__ void dconv_col_bwd_kernel(
     const int* __restrict__ y0, const int* __restrict__ y1,
     const int* __restrict__ x0, const int* __restrict__ x1,
     const float* __restrict__ ly, const float* __restrict__ lx,
-    const float* __restrict__ lf, const float* __restrict__ ft,
-    const float* __restrict__ g, long long rows, int n, int w, int hw, int c,
+    const float* __restrict__ lf, const T* __restrict__ ft,
+    const T* __restrict__ g, long long rows, int n, int w, int hw, int c,
     long long g_row, long long g_chan, float* __restrict__ dly,
     float* __restrict__ dlx, float* __restrict__ dlf, float* __restrict__ dft) {
   const long long r = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (r >= rows) return;  // whole warps leave together: rows split by warp
-  bwd_row(r, threadIdx.x & 31, y0, y1, x0, x1, ly, lx, lf, ft, g, n, w, hw, c, g_row,
-          g_chan, dly, dlx, dlf, dft);
+  bwd_row<T>(r, threadIdx.x & 31, y0, y1, x0, x1, ly, lx, lf, ft, g, n, w, hw, c, g_row,
+             g_chan, dly, dlx, dlf, dft);
+}
+
+// The bf16 instance's last step: d_ft rounded once from its fp32 sums.
+__global__ void round_to_bf16_kernel(const float* __restrict__ acc, long long total,
+                                     mx::bf16* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += stride)
+    out[e] = __float2bfloat16_rn(acc[e]);
 }
 
 // 16-byte atomic add (sm_90): one request where four scalar ones would go.
@@ -180,13 +226,17 @@ static_assert(kWindowFloats >= kTiledWarps * kMaxTaps * 3 * 32, "room for the ro
 
 // grid (ceil(Wo / kTileW), ceil(Ho / kTileH), BG), kTiledWarps * 32
 // threads, kTiledSmem bytes of dynamic shared memory; three blocks an SM.
+// T is the element type of ft and g: a bf16 ft window is staged in bf16
+// and converted as it is read, and d_ft (for bf16 the caller's fp32
+// buffer) is summed in fp32.
+template <typename T>
 __global__ void __launch_bounds__(kTiledWarps * 32, 3)
 dconv_col_bwd_tiled_kernel(
     const int* __restrict__ y0, const int* __restrict__ y1,
     const int* __restrict__ x0, const int* __restrict__ x1,
     const float* __restrict__ ly, const float* __restrict__ lx,
-    const float* __restrict__ lf, const float* __restrict__ ft,
-    const float* __restrict__ g, int n, int w, int hw, int c, int k2, int ho,
+    const float* __restrict__ lf, const T* __restrict__ ft,
+    const T* __restrict__ g, int n, int w, int hw, int c, int k2, int ho,
     int wo, float* __restrict__ dly, float* __restrict__ dlx,
     float* __restrict__ dlf, float* __restrict__ dft) {
   extern __shared__ __align__(16) float sm[];
@@ -204,9 +254,9 @@ dconv_col_bwd_tiled_kernel(
   const int hwo = ho * wo;
   const int row0 = oy * wo + ox;  // row of tap 0; tap t adds t Ho Wo
   const long long fb = (long long)bg * n;
-  const float* ftb = ft + (long long)bg * hw * c;
+  const T* ftb = ft + (long long)bg * hw * c;
   float* dftb = dft + (long long)bg * hw * c;
-  const float* gb = g + (long long)bg * c * n;
+  const T* gb = g + (long long)bg * c * n;
 
   // warp w reads the rows of taps w and w + kTiledWarps
   if (tid == 0) win[0] = win[1] = INT_MAX, win[2] = win[3] = INT_MIN;
@@ -256,8 +306,8 @@ dconv_col_bwd_tiled_kernel(
       const int t = i / 32, l = i % 32;
       const int py = blockIdx.y * kTileH + l / kTileW, pxx = blockIdx.x * kTileW + l % kTileW;
       if (py < ho && pxx < wo)
-        bwd_row(fb + (long long)t * hwo + py * wo + pxx, lane, y0, y1, x0, x1, ly, lx, lf,
-                ft, g, n, w, hw, c, 1, n, dly, dlx, dlf, dft);
+        bwd_row<T>(fb + (long long)t * hwo + py * wo + pxx, lane, y0, y1, x0, x1, ly, lx,
+                   lf, ft, g, n, w, hw, c, 1, n, dly, dlx, dlf, dft);
     }
     return;
   }
@@ -276,8 +326,8 @@ dconv_col_bwd_tiled_kernel(
     const int pc[4] = {base, base + dx[i], base + dy[i] * ww, base + dy[i] * ww + dx[i]};
     const float fy = tap_fy[t * 32 + lane], fx = tap_fx[t * 32 + lane];
     const float live = tap_live[t * 32 + lane];
-    const float sc[4] = {(1.f - fy) * (1.f - fx) * live, (1.f - fy) * fx * live,
-                         fy * (1.f - fx) * live, fy * fx * live};
+    const float4 s4 = scatter_weights<T>(fy, fx, live, dy[i] == 0, dx[i] == 0);
+    const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
     int rank = 0, turns = dx[i] << 24 | dy[i] << 25;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -302,7 +352,7 @@ dconv_col_bwd_tiled_kernel(
   float acc[kMaxTaps][3];  // this warp's part of the lanes' row sums
 #pragma unroll
   for (int t = 0; t < kMaxTaps; ++t) acc[t][0] = acc[t][1] = acc[t][2] = 0.f;
-  float* fw = sm;                          // [kMaxWindow][kPitch]
+  T* fw = reinterpret_cast<T*>(sm);        // [kMaxWindow][kPitch], in ft's type
   float* dw = sm + kMaxWindow * kPitch;    // [kMaxWindow][kPitch]
   const int k4 = 4 * warp;  // this warp's four channels of a chunk
   // chunk c0 of ft over the window into fw (channels past C: zeros, never
@@ -312,11 +362,19 @@ dconv_col_bwd_tiled_kernel(
     for (int i = tid; i < px * (kChunk / 4); i += kTiledWarps * 32) {
       const int p = i / (kChunk / 4), q4 = 4 * (i % (kChunk / 4));
       const int py = p / ww, pxx = p - py * ww;
-      float* dst = fw + p * kPitch + q4;
-      if (q4 < cn)
-        mx::cp_async16(dst, ftb + (long long)((ymin + py) * w + xmin + pxx) * c + c0 + q4);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      T* dst = fw + p * kPitch + q4;
+      const T* src = ftb + (long long)((ymin + py) * w + xmin + pxx) * c + c0 + q4;
+      if constexpr (sizeof(T) == sizeof(float)) {
+        if (q4 < cn)
+          mx::cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src));
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {  // bf16: four channels in 8 bytes, converted as they are read
+        if (q4 < cn)
+          mx::cp_async8(dst, src);
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+      }
     }
     mx::cp_async_commit();
   };
@@ -334,14 +392,15 @@ dconv_col_bwd_tiled_kernel(
     float gv[4], gn[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      gv[j] = pos && mine4 ? gb[(long long)(c0 + k4 + j) * n + row0] : 0.f;
+      gv[j] = pos && mine4 ? mx::to_float(gb[(long long)(c0 + k4 + j) * n + row0]) : 0.f;
 #pragma unroll
     for (int t = 0; t < kMaxTaps; ++t) {
       if (t >= k2 || !mine4) break;  // uniform
 #pragma unroll
       for (int j = 0; j < 4; ++j)  // the next tap's g, in flight
         gn[j] = pos && t + 1 < k2
-                    ? gb[(long long)(c0 + k4 + j) * n + (long long)(t + 1) * hwo + row0]
+                    ? mx::to_float(gb[(long long)(c0 + k4 + j) * n +
+                                      (long long)(t + 1) * hwo + row0])
                     : 0.f;
       const float y = tap_fy[t * 32 + lane], x = tap_fx[t * 32 + lane];
       const float live = tap_live[t * 32 + lane];
@@ -353,10 +412,10 @@ dconv_col_bwd_tiled_kernel(
       const float w01 = (1.f - y) * x;
       const float w10 = y * (1.f - x);
       const float w11 = y * x;
-      const float4 a = *reinterpret_cast<const float4*>(fw + pc[0] * kPitch + k4);
-      const float4 b = *reinterpret_cast<const float4*>(fw + pc[1] * kPitch + k4);
-      const float4 e = *reinterpret_cast<const float4*>(fw + pc[2] * kPitch + k4);
-      const float4 f = *reinterpret_cast<const float4*>(fw + pc[3] * kPitch + k4);
+      const float4 a = mx::lds4(fw + pc[0] * kPitch + k4);
+      const float4 b = mx::lds4(fw + pc[1] * kPitch + k4);
+      const float4 e = mx::lds4(fw + pc[2] * kPitch + k4);
+      const float4 f = mx::lds4(fw + pc[3] * kPitch + k4);
       const float f00[4] = {a.x, a.y, a.z, a.w}, f01[4] = {b.x, b.y, b.z, b.w};
       const float f10[4] = {e.x, e.y, e.z, e.w}, f11[4] = {f.x, f.y, f.z, f.w};
       // dA at the four corners over this warp's channels (the rows of
@@ -374,7 +433,8 @@ dconv_col_bwd_tiled_kernel(
       acc[t][1] += (1.f - y) * (s01 - s00) + y * (s11 - s10);
       acc[t][2] += w00 * s00 + w01 * s01 + w10 * s10 + w11 * s11;
       const float4 g4 = make_float4(gv[0], gv[1], gv[2], gv[3]);  // 0 past the map
-      const float sc[4] = {w00 * live, w01 * live, w10 * live, w11 * live};
+      const float4 s4 = scatter_weights<T>(y, x, live, ddy == 0, ddx == 0);
+      const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const bool adds = (turns >> (20 + q)) & 1;
@@ -480,17 +540,69 @@ extern "C" int mx_dconv_col_bwd(const void* y0, const void* y1, const void* x0,
   const bool vec4 = c % 4 == 0 && (reinterpret_cast<uintptr_t>(ft) & 15) == 0 &&
                     (reinterpret_cast<uintptr_t>(dft) & 15) == 0;
   if (k2 > 0 && k2 <= kMaxTaps && g_row == 1 && (long long)k2 * ho * wo == n && vec4) {
-    err = mx::allow_smem(dconv_col_bwd_tiled_kernel, kTiledSmem);
+    err = mx::allow_smem(dconv_col_bwd_tiled_kernel<float>, kTiledSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((wo + kTileW - 1) / kTileW, (ho + kTileH - 1) / kTileH, bg);
-    dconv_col_bwd_tiled_kernel<<<grid, kTiledWarps * 32, kTiledSmem, s>>>(
+    dconv_col_bwd_tiled_kernel<float><<<grid, kTiledWarps * 32, kTiledSmem, s>>>(
         iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, n, w, h * w, c, k2, ho, wo, oy, ox,
         of, oft);
   } else {
     const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    dconv_col_bwd_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+    dconv_col_bwd_kernel<float><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
         iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, rows, n, w, h * w, c, g_row, g_chan,
         oy, ox, of, oft);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with ft, g and dft bf16, and acc (BG, H W, C) f32, the buffer
+// d_ft is summed in (zeroed here, on the stream); the designs are chosen as
+// for fp32 (ft 8-byte aligned for the tiled one's 4-channel loads), then
+// d_ft is rounded once from acc.
+extern "C" int mx_dconv_col_bwd_bf16(const void* y0, const void* y1, const void* x0,
+                                     const void* x1, const void* ly, const void* lx,
+                                     const void* lf, const void* ft, const void* g,
+                                     void* dly, void* dlx, void* dlf, void* dft, void* acc,
+                                     int bg, int n, int h, int w, int c, int g_row,
+                                     int g_chan, int k2, int ho, int wo, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)bg * n;
+  const long long total = (long long)bg * h * w * c;
+  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)total * sizeof(float), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* iy0 = static_cast<const int*>(y0);
+  const auto* iy1 = static_cast<const int*>(y1);
+  const auto* ix0 = static_cast<const int*>(x0);
+  const auto* ix1 = static_cast<const int*>(x1);
+  const auto* fly = static_cast<const float*>(ly);
+  const auto* flx = static_cast<const float*>(lx);
+  const auto* flf = static_cast<const float*>(lf);
+  const auto* fft = static_cast<const mx::bf16*>(ft);
+  const auto* fg = static_cast<const mx::bf16*>(g);
+  auto* oy = static_cast<float*>(dly);
+  auto* ox = static_cast<float*>(dlx);
+  auto* of = static_cast<float*>(dlf);
+  auto* oacc = static_cast<float*>(acc);
+  const bool vec4 = c % 4 == 0 && (reinterpret_cast<uintptr_t>(ft) & 7) == 0 &&
+                    (reinterpret_cast<uintptr_t>(acc) & 15) == 0;
+  if (k2 > 0 && k2 <= kMaxTaps && g_row == 1 && (long long)k2 * ho * wo == n && vec4) {
+    err = mx::allow_smem(dconv_col_bwd_tiled_kernel<mx::bf16>, kTiledSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((wo + kTileW - 1) / kTileW, (ho + kTileH - 1) / kTileH, bg);
+    dconv_col_bwd_tiled_kernel<mx::bf16><<<grid, kTiledWarps * 32, kTiledSmem, s>>>(
+        iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, n, w, h * w, c, k2, ho, wo, oy, ox, of,
+        oacc);
+  } else {
+    const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    dconv_col_bwd_kernel<mx::bf16><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+        iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, rows, n, w, h * w, c, g_row, g_chan, oy,
+        ox, of, oacc);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kThreads = 256;
+  const long long rblocks = std::min<long long>((total + kThreads - 1) / kThreads, 1 << 16);
+  round_to_bf16_kernel<<<(unsigned)rblocks, kThreads, 0, s>>>(
+      static_cast<const float*>(acc), total, static_cast<mx::bf16*>(dft));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,11 +3,13 @@
 pooling and MultiProposal with greedy NMS.
 
 Layouts are the JAX package's: NCHW maps, rois ``(R, 5)`` as
-``[batch_idx, x1, y1, x2, y2]``, the ``(BG, N, C)`` dconv column.  Sampling
-coordinates are computed in fp32 in the JAX formulas' own order; the
-irregular inner loops run as the CUDA kernels of ``kernels.py`` on the card
-(their plain versions on the CPU), reached as ``kernels.<name>`` so that one
-forward can be observed from outside.  The two deformable ops are
+``[batch_idx, x1, y1, x2, y2]``, the ``(BG, N, C)`` dconv column.  The maps
+may be float32 or bfloat16, and each op follows its JAX op's dtype rules.
+Sampling coordinates are computed in fp32 in the JAX formulas' own order (a
+bf16 deformable offset first forms its sample positions in bf16, as JAX
+promotes them); the irregular inner loops run as the CUDA kernels of
+``kernels.py`` on the card (their plain versions on the CPU), reached as
+``kernels.<name>`` so that one forward can be observed from outside.  The two deformable ops are
 differentiable: their kernels are ``torch.autograd.Function``s whose
 backward is a kernel too, and every clip on a sample coordinate keeps
 ``jnp.clip``'s gradient (``_clip``).  The JAX package's ``vmap`` over
@@ -26,6 +28,14 @@ from .nn import pair
 
 __all__ = ["deformable_convolution", "deformable_psroi_pooling",
            "generate_base_anchors", "multi_proposal"]
+
+
+def _float_dtype(op, t):
+    """Raise unless ``t`` is float32 or bfloat16, the dtypes the deformable
+    ops are ported for."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("%s: float32 and bfloat16 are ported (ROADMAP.md "
+                         "A4.3), got %s" % (op, t.dtype))
 
 
 def _clip(v, lo, hi):
@@ -48,7 +58,11 @@ def dconv_sample_factors(offset, hw, kernel, stride, dilate, pad):
     (H, W) map: corner indices y0, y1, x0, x1 (int32), lerp factors ly, lx
     and the live mask lf (float32), each (B·DG, K²·Ho·Wo) with the rows laid
     out (tap, ho, wo).  ``offset`` is (B, 2·DG·K², Ho, Wo); the arguments
-    are pairs, as :func:`deformable_convolution` resolves them."""
+    are pairs, as :func:`deformable_convolution` resolves them.
+
+    As in the JAX op, the integer base position is added to the offset in
+    the offset's dtype: a bf16 offset gives bf16 sample positions, which the
+    live test sees; only the clip and what follows are fp32."""
     H, W = hw
     kh, kw = kernel
     sh, sw = stride
@@ -67,15 +81,15 @@ def dconv_sample_factors(offset, hw, kernel, stride, dilate, pad):
     tap_dx = (jj * dw).repeat(kh)                                # (K2,)
     grid_y = (torch.arange(Ho, device=dev) * sh - ph)[:, None]   # (Ho,1)
     grid_x = (torch.arange(Wo, device=dev) * sw - pw)[None, :]   # (1,Wo)
-    base_y = (grid_y[None] + tap_dy[:, None, None]).to(f32)      # (K2,Ho,1)
-    base_x = (grid_x[None] + tap_dx[:, None, None]).to(f32)      # (K2,1,Wo)
+    base_y = (grid_y[None] + tap_dy[:, None, None]).to(offset.dtype)  # (K2,Ho,1)
+    base_x = (grid_x[None] + tap_dx[:, None, None]).to(offset.dtype)  # (K2,1,Wo)
 
     off = offset.reshape(B, DG, K2, 2, Ho, Wo)
     sy = base_y + off[:, :, :, 0]
     sx = base_x + off[:, :, :, 1]
     live = (sy >= 0) & (sy < H) & (sx >= 0) & (sx < W)
-    syc = _clip(sy, 0.0, H - 1.0).reshape(B * DG, N)
-    sxc = _clip(sx, 0.0, W - 1.0).reshape(B * DG, N)
+    syc = _clip(sy.to(f32), 0.0, H - 1.0).reshape(B * DG, N)
+    sxc = _clip(sx.to(f32), 0.0, W - 1.0).reshape(B * DG, N)
     y0 = torch.floor(syc).to(torch.int32)
     x0 = torch.floor(sxc).to(torch.int32)
     y1 = torch.clamp(y0 + 1, max=H - 1)
@@ -97,7 +111,10 @@ def deformable_convolution(data, offset, weight, bias=None, *, kernel,
     with Δ from ``offset`` (B, 2·DG·K², Ho, Wo), ``[.., 0]`` = Δy.  Samples
     off the map are 0; positions past the last row or column snap to it.
     The column is the ``dconv_col`` kernel at every size; the product with
-    the weight is one batched product.
+    the weight is one batched product.  float32 or bfloat16: the column and
+    the output come in ``data``'s dtype (the bf16 column as the TPU
+    kernel's bf16 instance computes it), and a bf16 weight product is a
+    bf16 ``torch.bmm``.
     """
     kh, kw = pair(kernel)
     sh, sw = pair(stride)
@@ -110,10 +127,7 @@ def deformable_convolution(data, offset, weight, bias=None, *, kernel,
     Wo = (W + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
     K2 = kh * kw
     cpg = C // DG
-    f32 = torch.float32
-    if data.dtype != f32:
-        raise ValueError("DeformableConvolution: only float32 is ported, got %s"
-                         % data.dtype)
+    _float_dtype("DeformableConvolution", data)
     if tuple(offset.shape) != (B, 2 * DG * K2, Ho, Wo):
         raise ValueError("DeformableConvolution: offset must be %s, got %s"
                          % ((B, 2 * DG * K2, Ho, Wo), tuple(offset.shape)))
@@ -163,6 +177,12 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
     layout).  That path ignores the batch_idx column, as the JAX package's
     does, and keeps the product block-diagonal over images; a value that does
     not divide R takes the general path.
+
+    float32 or bfloat16, as the JAX op: the coordinate math is fp32, but a
+    bf16 ``trans`` is scaled by ``trans_std`` in bf16 before it meets the
+    fp32 roi size; A is stored in the map's dtype (``psroi_abuild``), its
+    product with the planes is one product in that dtype, and the pooled
+    sums are divided in fp32 and cast back to it.
     """
     PH = PW = int(pooled_size)
     group = int(group_size)
@@ -172,9 +192,7 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
     B, C, H, W = data.shape
     dev = data.device
     f32 = torch.float32
-    if data.dtype != f32:
-        raise ValueError("DeformablePSROIPooling: only float32 is ported, got %s"
-                         % data.dtype)
+    _float_dtype("DeformablePSROIPooling", data)
 
     batch_idx = rois[:, 0].to(torch.int64)
     rois = rois.to(f32)
@@ -215,9 +233,12 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
         tx = torch.zeros((R, K, PH, PW), dtype=f32, device=dev)
         ty = torch.zeros((R, K, PH, PW), dtype=f32, device=dev)
     else:
-        t = trans.to(f32).reshape(R, K, 2, part, part)
-        tx = t[:, :, 0][:, :, part_h][:, :, :, part_w] * trans_std
-        ty = t[:, :, 1][:, :, part_h][:, :, :, part_w] * trans_std
+        # t·trans_std in trans's dtype (a Python float is weakly typed in
+        # JAX: a bf16 trans is scaled in bf16), then fp32 against the roi
+        t = trans.reshape(R, K, 2, part, part)
+        std = torch.full((), trans_std, dtype=t.dtype, device=dev)
+        tx = (t[:, :, 0][:, :, part_h][:, :, :, part_w] * std).to(f32)
+        ty = (t[:, :, 1][:, :, part_h][:, :, :, part_w] * std).to(f32)
     wst = pw_n.to(f32)[None, None, None, :] * bs_w[r1] + xs[r1] + tx * roi_w[r1]
     hst = ph_n.to(f32)[None, None, :, None] * bs_h[r1] + ys[r1] + ty * roi_h[r1]
     # sample grid (R, K, PH, PW, spp, spp)
@@ -262,7 +283,8 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
           + lyb[..., None] * (to_bins(y1 + yoff)[..., None] == iota_y))
     xv = lfb[..., None] * ((1.0 - lxb)[..., None] * (to_bins(x0)[..., None] == iota_x)
                            + lxb[..., None] * (to_bins(x1)[..., None] == iota_x))
-    a = kernels.PSROIABuild.apply(yv.contiguous(), xv.contiguous())  # (NB·R, rows, W)
+    a = kernels.PSROIABuild.apply(yv.contiguous(), xv.contiguous(),
+                                  data.dtype)  # (NB·R, rows, W)
 
     # per-bin planes of the position-sensitive map: (NB, B, hw, cpc)
     kb = torch.arange(K, device=dev).repeat_interleave(PH * PW)
@@ -275,9 +297,9 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
     else:
         s = torch.bmm(a.reshape(NB, R, B * hw), planes.reshape(NB, B * hw, cpc))
         s = s.reshape(K, PH, PW, R, cpc).permute(3, 0, 1, 2, 4)
-    out = torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), 0.0)
-    # (R, K, PH, PW, cpc) -> (R, K·cpc = OD, PH, PW)
-    return out.permute(0, 1, 4, 2, 3).reshape(R, OD, PH, PW)
+    out = torch.where(cnt > 0, s.to(f32) / torch.clamp(cnt, min=1.0), 0.0)
+    # (R, K, PH, PW, cpc) -> (R, K·cpc = OD, PH, PW), in the data dtype
+    return out.permute(0, 1, 4, 2, 3).reshape(R, OD, PH, PW).to(data.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,14 @@ The int8 pair (``quantize_int8``, ``dequantize_int8``) also takes ``meta``
 tensors to its plain version, which computes nothing: the symbolic
 frontend's shape inference runs the operators on them.
 
+Two of the TPU kernels are dtype-generic, and so are their counterparts
+here: the dconv pair takes a bfloat16 ``ft`` (and ``g``), and the A-build
+pair writes A in bfloat16 (and takes a bfloat16 ``g``), each accumulating
+in fp32 as the TPU kernel does.  Each bfloat16 instance is a kernel of its
+own with its own wrapper and count (``dconv_col_bf16`` and so on, rows
+``dconv_col[bf16]`` of :data:`KERNELS`); the dtype-generic wrapper passes a
+bfloat16 call to it.  float16 raises.
+
 Callers reach the wrappers as attributes of this module (``kernels.nms_alive``).
 The kernels with a backward (``dconv_col``, ``psroi_abuild``) are also
 ``torch.autograd.Function``s (``DConvCol``, ``PSROIABuild``), the
@@ -24,15 +32,18 @@ counterparts of the TPU kernels' custom VJPs.  The kernel sources are under
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from . import _build
 
-__all__ = ["nms_alive", "nms_alive_plain", "dconv_col", "dconv_col_plain",
-           "dconv_col_bwd", "dconv_col_bwd_plain", "channel_major", "DConvCol",
-           "psroi_abuild", "psroi_abuild_plain", "psroi_abuild_bwd",
+__all__ = ["nms_alive", "nms_alive_plain", "dconv_col", "dconv_col_bf16",
+           "dconv_col_plain", "dconv_col_bwd", "dconv_col_bwd_bf16",
+           "dconv_col_bwd_plain", "channel_major", "DConvCol",
+           "psroi_abuild", "psroi_abuild_bf16", "psroi_abuild_plain",
+           "psroi_abuild_bwd", "psroi_abuild_bwd_bf16",
            "psroi_abuild_bwd_plain", "PSROIABuild", "quantize_int8",
            "quantize_int8_plain", "dequantize_int8", "dequantize_int8_plain",
            "Kernel", "KERNELS", "reset_launches"]
@@ -53,6 +64,18 @@ def _same_device(name, *tensors):
 def _contiguous(name, **tensors):
     for k, t in tensors.items():
         _require(t.is_contiguous(), "%s: %s must be contiguous" % (name, k))
+
+
+_BF16 = torch.bfloat16
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _float(name, what, t):
+    """Raise unless ``t`` is float32 or bfloat16, the dtypes the kernels
+    take."""
+    _require(t.dtype in _FLOATS, "%s: %s must be float32 or bfloat16, got %s "
+             "(ROADMAP.md A4.3 ported these two; float16 and other dtypes are "
+             "not ported)" % (name, what, t.dtype))
 
 
 def _launch(name, dev, entry, *args):
@@ -198,13 +221,16 @@ def dconv_col_plain(y0, y1, x0, x1, ly, lx, lf, ft, hw):
     xv = lf[..., None] * ((1.0 - lx)[..., None] * (x0[..., None] == ix)
                           + lx[..., None] * (x1[..., None] == ix))    # (BG,N,W)
     a = (yv[..., :, None] * xv[..., None, :]).reshape(BG, N, H * W)
-    return _col_empty(BG, N, ft.shape[2], ft.device).copy_(torch.bmm(a, ft))
+    col = _col_empty(BG, N, ft.shape[2], ft.device, ft.dtype)
+    if ft.dtype == _BF16:
+        # A rounded to bf16, its product with ft summed in fp32, rounded once
+        return col.copy_(torch.bmm(a.to(_BF16).float(), ft.float()))
+    return col.copy_(torch.bmm(a, ft))
 
 
-def _col_empty(BG, N, C, dev):
+def _col_empty(BG, N, C, dev, dtype=torch.float32):
     """The (BG, N, C) column, stored channel-major: strides (C·N, 1, N)."""
-    return torch.empty_strided((BG, N, C), (C * N, 1, N), dtype=torch.float32,
-                               device=dev)
+    return torch.empty_strided((BG, N, C), (C * N, 1, N), dtype=dtype, device=dev)
 
 
 def dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw):
@@ -213,23 +239,42 @@ def dconv_col(y0, y1, x0, x1, ly, lx, lf, ft, hw):
 
     y0, y1, x0, x1 (BG, N) int32 corner indices inside the (H, W) map;
     ly, lx (BG, N) f32 lerp factors; lf (BG, N) f32 live mask;
-    ft (BG, H·W, C) f32.  Returns (BG, N, C) f32 stored channel-major,
-    strides (C·N, 1, N), on both devices: the layout of the weight product
-    in ``deformable_convolution``, whose reshapes of it are then views.
+    ft (BG, H·W, C) f32 or bf16.  Returns (BG, N, C) in ft's dtype stored
+    channel-major, strides (C·N, 1, N), on both devices: the layout of the
+    weight product in ``deformable_convolution``, whose reshapes of it are
+    then views.  A bf16 ``ft`` goes to :func:`dconv_col_bf16`.
     """
-    H, W, BG, N = _dconv_check("dconv_col", y0, y1, x0, x1, ly, lx, lf, ft, hw)
-    dev = _same_device("dconv_col", y0, y1, x0, x1, ly, lx, lf, ft)
+    if ft.dtype == _BF16:
+        return dconv_col_bf16(y0, y1, x0, x1, ly, lx, lf, ft, hw)
+    shape = _dconv_check("dconv_col", y0, y1, x0, x1, ly, lx, lf, ft, hw)
+    return _dconv_col("dconv_col", "mx_dconv_col", y0, y1, x0, x1, ly, lx, lf,
+                      ft, shape)
+
+
+def dconv_col_bf16(y0, y1, x0, x1, ly, lx, lf, ft, hw):
+    """:func:`dconv_col` for a bf16 ``ft``, to the contract of the TPU
+    kernel's bf16 instance (``_dconv_fwd_kernel_factory``): A = yfac·xfac·lf
+    in fp32, rounded to bf16, times ft, summed in fp32 and rounded once to
+    the bf16 column."""
+    shape = _dconv_check("dconv_col_bf16", y0, y1, x0, x1, ly, lx, lf, ft, hw)
+    _require(ft.dtype == _BF16, "dconv_col_bf16: ft must be bfloat16")
+    return _dconv_col("dconv_col[bf16]", "mx_dconv_col_bf16", y0, y1, x0, x1,
+                      ly, lx, lf, ft, shape)
+
+
+def _dconv_col(name, entry, y0, y1, x0, x1, ly, lx, lf, ft, shape):
+    H, W, BG, N = shape
+    dev = _same_device(name, y0, y1, x0, x1, ly, lx, lf, ft)
     if dev.type == "cpu":
         return dconv_col_plain(y0, y1, x0, x1, ly, lx, lf, ft, (H, W))
-    _require(dev.type == "cuda", "dconv_col: unsupported device %s" % dev)
-    _contiguous("dconv_col", y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx,
-                lf=lf, ft=ft)
+    _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
+    _contiguous(name, y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx, lf=lf, ft=ft)
     C = ft.shape[2]
-    col = _col_empty(BG, N, C, dev)
+    col = _col_empty(BG, N, C, dev, ft.dtype)
     if col.numel() == 0:
         return col
     tensors = (y0, y1, x0, x1, ly, lx, lf, ft, col)
-    _launch("dconv_col", dev, "mx_dconv_col", *(t.data_ptr() for t in tensors),
+    _launch(name, dev, entry, *(t.data_ptr() for t in tensors),
             BG, N, H, W, C, _dconv_col_vec(tensors, N, C))
     return col
 
@@ -241,6 +286,7 @@ def _dconv_col_vec(tensors, N, C):
 
 
 dconv_col.launches = 0
+dconv_col_bf16.launches = 0
 
 
 def _dconv_check(name, y0, y1, x0, x1, ly, lx, lf, ft, hw):
@@ -256,8 +302,7 @@ def _dconv_check(name, y0, y1, x0, x1, ly, lx, lf, ft, hw):
                  "%s: %s must be float32 (BG, N)" % (name, k))
     _require(ft.dim() == 3 and ft.shape[:2] == (BG, H * W),
              "%s: ft must be (BG, H*W, C)" % name)
-    _require(ft.dtype == torch.float32, "%s: ft must be float32 "
-             "(got %s; other dtypes are not ported)" % (name, ft.dtype))
+    _float(name, "ft", ft)
     return H, W, BG, N
 
 
@@ -265,9 +310,13 @@ def dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout=None):
     """Plain version of :func:`dconv_col_bwd`: the one-hot formulation of the
     TPU kernel (``_dconv_bwd_kernel_factory``): build A, take dA = g·ftᵀ,
     reduce it against the one-hot masks, and d_ft = Aᵀ·g.  ``g`` may have
-    any strides; the rows' ``layout`` does not change the result."""
+    any strides; the rows' ``layout`` does not change the result.  With a
+    bf16 ``ft`` and ``g`` (``dconv_col_bwd_bf16``): dA and the row sums in
+    fp32, and d_ft = bf16(A)ᵀ·g summed in fp32 and rounded once to bf16."""
     H, W = hw
     BG, N = y0.shape
+    out_dtype = ft.dtype
+    ft, g = ft.float(), g.float()
     iy = torch.arange(H, device=y0.device)
     ix = torch.arange(W, device=y0.device)
     e0y = (y0[..., None] == iy).to(ft.dtype)
@@ -282,7 +331,9 @@ def dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout=None):
     d_lx = ((da * yfac[..., :, None]).sum(2) * (e1x - e0x)).sum(2) * lf
     d_lf = (da_x * yfac).sum(2)
     a = (yfac[..., :, None] * xfac[..., None, :] * lf[..., None, None]).reshape(BG, N, H * W)
-    d_ft = torch.bmm(a.transpose(1, 2), g)
+    if out_dtype == _BF16:
+        a = a.to(_BF16).float()
+    d_ft = torch.bmm(a.transpose(1, 2), g).to(out_dtype)
     return d_ly, d_lx, d_lf, d_ft
 
 
@@ -296,46 +347,80 @@ def channel_major(g):
 def dconv_col_bwd(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout=None):
     """Gradients of :func:`dconv_col` for the cotangent ``g`` (BG, N, C) of
     col (``dconv_col_pallas``'s custom VJP): returns (d_ly, d_lx, d_lf) as
-    (BG, N) f32 and d_ft (BG, H·W, C) f32.  The int inputs get none.
-    ``g`` is contiguous or channel-major (:func:`channel_major`), as the
-    autograd hands it; the kernel reads either in place.  ``layout``
-    (K², Ho, Wo), where given, says the rows are laid out (tap, ho, wo), as
+    (BG, N) f32 and d_ft (BG, H·W, C) in ft's dtype.  The int inputs get
+    none.  ``g`` has ft's dtype and is contiguous or channel-major
+    (:func:`channel_major`), as the autograd hands it; the kernel reads
+    either in place.  ``layout`` (K², Ho, Wo), where given, says the rows
+    are laid out (tap, ho, wo), as
     :func:`~mxnet_tpu_torch.ops.detection.deformable_convolution` builds
     them: with a channel-major ``g`` the kernel then sums each tile's
-    corner terms in shared memory."""
-    H, W, BG, N = _dconv_check("dconv_col_bwd", y0, y1, x0, x1, ly, lx, lf, ft, hw)
+    corner terms in shared memory.  A bf16 ``ft`` goes to
+    :func:`dconv_col_bwd_bf16`."""
+    if ft.dtype == _BF16:
+        return dconv_col_bwd_bf16(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout)
+    shape = _dconv_bwd_check("dconv_col_bwd", y0, y1, x0, x1, ly, lx, lf, ft,
+                             g, hw, layout)
+    return _dconv_col_bwd("dconv_col_bwd", "mx_dconv_col_bwd", y0, y1, x0, x1,
+                          ly, lx, lf, ft, g, shape, layout)
+
+
+def dconv_col_bwd_bf16(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout=None):
+    """:func:`dconv_col_bwd` for bf16 ``ft`` and ``g``, to the contract of
+    the TPU kernel's bf16 instance (``_dconv_bwd_kernel_factory``,
+    ``_dconv_bwd``): dA = g·ftᵀ and the three row sums in fp32, written
+    fp32; d_ft = bf16(A)ᵀ·g accumulated in fp32 over every row and rounded
+    once to bf16 at the end."""
+    shape = _dconv_bwd_check("dconv_col_bwd_bf16", y0, y1, x0, x1, ly, lx, lf,
+                             ft, g, hw, layout)
+    _require(ft.dtype == _BF16, "dconv_col_bwd_bf16: ft and g must be bfloat16")
+    return _dconv_col_bwd("dconv_col_bwd[bf16]", "mx_dconv_col_bwd_bf16", y0,
+                          y1, x0, x1, ly, lx, lf, ft, g, shape, layout)
+
+
+def _dconv_bwd_check(name, y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout):
+    H, W, BG, N = _dconv_check(name, y0, y1, x0, x1, ly, lx, lf, ft, hw)
     C = ft.shape[2]
-    _require(g.shape == (BG, N, C) and g.dtype == torch.float32,
-             "dconv_col_bwd: g must be float32 (BG, N, C)")
-    _require(g.is_contiguous() or channel_major(g), "dconv_col_bwd: g must be "
+    _require(g.shape == (BG, N, C) and g.dtype == ft.dtype,
+             "%s: g must be %s (BG, N, C), ft's dtype" % (name, str(ft.dtype)[6:]))
+    _require(g.is_contiguous() or channel_major(g), "%s: g must be "
              "contiguous or channel-major (strides (C*N, 1, N)), got strides %s"
-             % (tuple(g.stride()),))
+             % (name, tuple(g.stride())))
+    _require(layout is None or (all(isinstance(v, int) and v > 0 for v in layout)
+                                and layout[0] * layout[1] * layout[2] == N),
+             "%s: layout (K2, Ho, Wo) must be positive ints with "
+             "K2*Ho*Wo == N = %d, got %s" % (name, N, layout))
+    return H, W, BG, N
+
+
+def _dconv_col_bwd(name, entry, y0, y1, x0, x1, ly, lx, lf, ft, g, shape, layout):
+    H, W, BG, N = shape
+    C = ft.shape[2]
     g_row, g_chan = (C, 1) if g.is_contiguous() else (1, N)
     k2, ho, wo = (0, 0, 0) if layout is None else layout
-    _require(layout is None or (all(isinstance(v, int) and v > 0 for v in layout)
-                                and k2 * ho * wo == N),
-             "dconv_col_bwd: layout (K2, Ho, Wo) must be positive ints with "
-             "K2*Ho*Wo == N = %d, got %s" % (N, layout))
-    dev = _same_device("dconv_col_bwd", y0, y1, x0, x1, ly, lx, lf, ft, g)
+    dev = _same_device(name, y0, y1, x0, x1, ly, lx, lf, ft, g)
     if dev.type == "cpu":
         return dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, (H, W))
-    _require(dev.type == "cuda", "dconv_col_bwd: unsupported device %s" % dev)
-    _contiguous("dconv_col_bwd", y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx,
-                lf=lf, ft=ft)
+    _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
+    _contiguous(name, y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx, lf=lf, ft=ft)
     if BG * N == 0 or C == 0:  # nothing to launch: every sum is empty
         z = torch.zeros((BG, N), dtype=torch.float32, device=dev)
         return z, z.clone(), z.clone(), torch.zeros_like(ft)
     rows = [torch.empty((BG, N), dtype=torch.float32, device=dev) for _ in range(3)]
     d_ft = torch.empty_like(ft)  # zeroed by the entry, on the stream
-    _launch("dconv_col_bwd", dev, "mx_dconv_col_bwd", y0.data_ptr(),
+    # the bf16 instance sums d_ft in an fp32 buffer and rounds it at the end
+    acc = (torch.empty(ft.shape, dtype=torch.float32, device=dev)
+           if ft.dtype == _BF16 else None)
+    extra = () if acc is None else (acc.data_ptr(),)
+    _launch(name, dev, entry, y0.data_ptr(),
             y1.data_ptr(), x0.data_ptr(), x1.data_ptr(), ly.data_ptr(),
             lx.data_ptr(), lf.data_ptr(), ft.data_ptr(), g.data_ptr(),
-            *(t.data_ptr() for t in rows), d_ft.data_ptr(), BG, N, H, W, C,
-            g_row, g_chan, k2, ho, wo)
+            *(t.data_ptr() for t in rows), d_ft.data_ptr(), *extra, BG, N, H, W,
+            C, g_row, g_chan, k2, ho, wo)
     return (*rows, d_ft)
 
 
 dconv_col_bwd.launches = 0
+dconv_col_bwd_bf16.launches = 0
 
 
 class DConvCol(torch.autograd.Function):
@@ -373,46 +458,73 @@ class DConvCol(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def psroi_abuild_plain(yv, xv):
+def psroi_abuild_plain(yv, xv, out_dtype=torch.float32):
     """Plain version of :func:`psroi_abuild`: the rank-S outer-product sum,
-    taken over s in ascending order as the kernel does."""
+    taken in fp32 over s in ascending order as the kernel does, and rounded
+    once to ``out_dtype``."""
     a = yv[:, 0, :, None] * xv[:, 0, None, :]
     for s in range(1, yv.shape[1]):
         a = a + yv[:, s, :, None] * xv[:, s, None, :]
-    return a
+    return a.to(out_dtype)
 
 
-def psroi_abuild(yv, xv):
-    """A[n, h, w] = Σ_s yv[n, s, h]·xv[n, s, w] in fp32
-    (``psroi_abuild_pallas`` forward).  yv (N, S, H), xv (N, S, W) f32."""
+def psroi_abuild(yv, xv, out_dtype=torch.float32):
+    """A[n, h, w] = Σ_s yv[n, s, h]·xv[n, s, w], summed in fp32 and stored
+    in ``out_dtype`` (``psroi_abuild_pallas`` forward, whose ``out_dtype``
+    is the pooled map's).  yv (N, S, H), xv (N, S, W) f32; ``out_dtype``
+    float32, or bfloat16 (:func:`psroi_abuild_bf16`)."""
+    _require(out_dtype in _FLOATS, "psroi_abuild: out_dtype must be float32 "
+             "or bfloat16, got %s (ROADMAP.md A4.3 ported these two; float16 "
+             "and other dtypes are not ported)" % (out_dtype,))
+    if out_dtype == _BF16:
+        return psroi_abuild_bf16(yv, xv)
+    _abuild_check("psroi_abuild", yv, xv)
+    return _psroi_abuild("psroi_abuild", "mx_psroi_abuild", yv, xv, torch.float32)
+
+
+def psroi_abuild_bf16(yv, xv):
+    """:func:`psroi_abuild` with A stored in bf16: yv and xv stay fp32, the
+    sum over s is fp32, and only the store rounds
+    (``_abuild_fwd_kernel_factory`` with a bf16 ``out_dtype``)."""
+    _abuild_check("psroi_abuild_bf16", yv, xv)
+    return _psroi_abuild("psroi_abuild[bf16]", "mx_psroi_abuild_bf16", yv, xv, _BF16)
+
+
+def _abuild_check(name, yv, xv):
     _require(yv.dim() == 3 and xv.dim() == 3 and yv.shape[:2] == xv.shape[:2],
-             "psroi_abuild: yv must be (N, S, H) and xv (N, S, W)")
+             "%s: yv must be (N, S, H) and xv (N, S, W)" % name)
     _require(yv.dtype == torch.float32 and xv.dtype == torch.float32,
-             "psroi_abuild: yv and xv must be float32")
+             "%s: yv and xv must be float32" % name)
+
+
+def _psroi_abuild(name, entry, yv, xv, out_dtype):
     N, S, H = yv.shape
     W = xv.shape[2]
-    _require(S >= 1, "psroi_abuild: S must be at least 1")
-    dev = _same_device("psroi_abuild", yv, xv)
+    _require(S >= 1, "%s: S must be at least 1" % name)
+    dev = _same_device(name, yv, xv)
     if dev.type == "cpu":
-        return psroi_abuild_plain(yv, xv)
-    _require(dev.type == "cuda", "psroi_abuild: unsupported device %s" % dev)
-    _contiguous("psroi_abuild", yv=yv, xv=xv)
-    _require(S * (H + W) * 4 <= 227 * 1024, "psroi_abuild: S*(H+W) too large "
-             "for one block's shared memory")
-    a = torch.empty((N, H, W), dtype=torch.float32, device=dev)
+        return psroi_abuild_plain(yv, xv, out_dtype)
+    _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
+    _contiguous(name, yv=yv, xv=xv)
+    _require(S * (H + W) * 4 <= 227 * 1024, "%s: S*(H+W) too large "
+             "for one block's shared memory" % name)
+    a = torch.empty((N, H, W), dtype=out_dtype, device=dev)
     if a.numel() == 0:
         return a
-    _launch("psroi_abuild", dev, "mx_psroi_abuild", yv.data_ptr(),
-            xv.data_ptr(), a.data_ptr(), N, S, H, W)
+    _launch(name, dev, entry, yv.data_ptr(), xv.data_ptr(), a.data_ptr(),
+            N, S, H, W)
     return a
 
 
 psroi_abuild.launches = 0
+psroi_abuild_bf16.launches = 0
 
 
 def psroi_abuild_bwd_plain(yv, xv, g):
     """Plain version of :func:`psroi_abuild_bwd`: each gradient as the
-    products of its formula summed over the contracted axis."""
+    products of its formula summed over the contracted axis, ``g`` upcast
+    to fp32 first."""
+    g = g.float()
     dyv = (g[:, None, :, :] * xv[:, :, None, :]).sum(3)   # sum over w
     dxv = (yv[:, :, :, None] * g[:, None, :, :]).sum(2)   # sum over h
     return dyv, dxv
@@ -421,51 +533,74 @@ def psroi_abuild_bwd_plain(yv, xv, g):
 def psroi_abuild_bwd(yv, xv, g):
     """Gradients of :func:`psroi_abuild` for the cotangent ``g`` (N, H, W) of
     A (``psroi_abuild_pallas``'s custom VJP): dyv[n, s, h] = Σ_w g[n, h, w]
-    xv[n, s, w] and dxv[n, s, w] = Σ_h yv[n, s, h] g[n, h, w], in fp32."""
-    _require(yv.dim() == 3 and xv.dim() == 3 and yv.shape[:2] == xv.shape[:2],
-             "psroi_abuild_bwd: yv must be (N, S, H) and xv (N, S, W)")
+    xv[n, s, w] and dxv[n, s, w] = Σ_h yv[n, s, h] g[n, h, w], in fp32.
+    ``g`` is float32, or bfloat16 (:func:`psroi_abuild_bwd_bf16`)."""
+    if g.dtype == _BF16:
+        return psroi_abuild_bwd_bf16(yv, xv, g)
+    shape = _abuild_bwd_check("psroi_abuild_bwd", yv, xv, g)
+    return _psroi_abuild_bwd("psroi_abuild_bwd", "mx_psroi_abuild_bwd", yv, xv,
+                             g, shape)
+
+
+def psroi_abuild_bwd_bf16(yv, xv, g):
+    """:func:`psroi_abuild_bwd` for a bf16 cotangent ``g`` (that of a bf16
+    A): ``g`` is upcast to fp32 and dyv, dxv are written fp32
+    (``_abuild_bwd_kernel_factory``)."""
+    shape = _abuild_bwd_check("psroi_abuild_bwd_bf16", yv, xv, g)
+    _require(g.dtype == _BF16, "psroi_abuild_bwd_bf16: g must be bfloat16")
+    return _psroi_abuild_bwd("psroi_abuild_bwd[bf16]", "mx_psroi_abuild_bwd_bf16",
+                             yv, xv, g, shape)
+
+
+def _abuild_bwd_check(name, yv, xv, g):
+    _abuild_check(name, yv, xv)
     N, S, H = yv.shape
     W = xv.shape[2]
-    _require(g.shape == (N, H, W), "psroi_abuild_bwd: g must be (N, H, W)")
-    _require(all(t.dtype == torch.float32 for t in (yv, xv, g)),
-             "psroi_abuild_bwd: yv, xv and g must be float32")
-    dev = _same_device("psroi_abuild_bwd", yv, xv, g)
+    _require(g.shape == (N, H, W), "%s: g must be (N, H, W)" % name)
+    _float(name, "g", g)
+    return N, S, H, W
+
+
+def _psroi_abuild_bwd(name, entry, yv, xv, g, shape):
+    N, S, H, W = shape
+    dev = _same_device(name, yv, xv, g)
     if dev.type == "cpu":
         return psroi_abuild_bwd_plain(yv, xv, g)
-    _require(dev.type == "cuda", "psroi_abuild_bwd: unsupported device %s" % dev)
-    _contiguous("psroi_abuild_bwd", yv=yv, xv=xv, g=g)
+    _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
+    _contiguous(name, yv=yv, xv=xv, g=g)
     _require(((H + S) * (W + 1) + S * H) * 4 <= 227 * 1024,
-             "psroi_abuild_bwd: H, W and S too large for one block's shared memory")
+             "%s: H, W and S too large for one block's shared memory" % name)
     dyv = torch.empty_like(yv)
     dxv = torch.empty_like(xv)
     if N == 0 or S == 0:
         return dyv, dxv
-    _launch("psroi_abuild_bwd", dev, "mx_psroi_abuild_bwd", yv.data_ptr(),
-            xv.data_ptr(), g.data_ptr(), dyv.data_ptr(), dxv.data_ptr(),
-            N, S, H, W)
+    _launch(name, dev, entry, yv.data_ptr(), xv.data_ptr(), g.data_ptr(),
+            dyv.data_ptr(), dxv.data_ptr(), N, S, H, W)
     return dyv, dxv
 
 
 psroi_abuild_bwd.launches = 0
+psroi_abuild_bwd_bf16.launches = 0
 
 
 class PSROIABuild(torch.autograd.Function):
     """:func:`psroi_abuild` with its gradient from :func:`psroi_abuild_bwd`
-    (counterpart of ``psroi_abuild_pallas``'s custom VJP).  The wrappers are
-    looked up as module attributes at call time."""
+    (counterpart of ``psroi_abuild_pallas``'s custom VJP).  An optional
+    last argument is A's ``out_dtype``; the cotangent comes in that dtype.
+    The wrappers are looked up as module attributes at call time."""
 
     @staticmethod
-    def forward(ctx, yv, xv):
+    def forward(ctx, yv, xv, out_dtype=torch.float32):
         ctx.save_for_backward(yv, xv)
-        return psroi_abuild(yv, xv)
+        return psroi_abuild(yv, xv, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad
-        if not any(need):
-            return None, None
+        if not any(need[:2]):
+            return None, None, None
         dyv, dxv = psroi_abuild_bwd(*ctx.saved_tensors, g.contiguous())
-        return (dyv if need[0] else None), (dxv if need[1] else None)
+        return (dyv if need[0] else None), (dxv if need[1] else None), None
 
 
 # ---------------------------------------------------------------------------
@@ -581,6 +716,20 @@ KERNELS = {
     "dequantize_int8": Kernel(dequantize_int8, dequantize_int8_plain,
                               "mxnet_tpu_torch/ops/csrc/quantize_int8.cu",
                               "mxnet_tpu/ops/pallas_kernels.py:327"),
+    # the bf16 instances of the dtype-generic TPU kernels
+    "dconv_col[bf16]": Kernel(dconv_col_bf16, dconv_col_plain,
+                              "mxnet_tpu_torch/ops/csrc/dconv_col.cu",
+                              "mxnet_tpu/ops/pallas_kernels.py:928"),
+    "dconv_col_bwd[bf16]": Kernel(dconv_col_bwd_bf16, dconv_col_bwd_plain,
+                                  "mxnet_tpu_torch/ops/csrc/dconv_col_bwd.cu",
+                                  "mxnet_tpu/ops/pallas_kernels.py:960"),
+    "psroi_abuild[bf16]": Kernel(psroi_abuild_bf16,
+                                 functools.partial(psroi_abuild_plain, out_dtype=_BF16),
+                                 "mxnet_tpu_torch/ops/csrc/psroi_abuild.cu",
+                                 "mxnet_tpu/ops/pallas_kernels.py:680"),
+    "psroi_abuild_bwd[bf16]": Kernel(psroi_abuild_bwd_bf16, psroi_abuild_bwd_plain,
+                                     "mxnet_tpu_torch/ops/csrc/psroi_abuild_bwd.cu",
+                                     "mxnet_tpu/ops/pallas_kernels.py:707"),
 }
 
 

@@ -10,6 +10,7 @@ on the device).
 
     python -m mxnet_tpu_torch.train_fused --device cpu        # tiny config
     python -m mxnet_tpu_torch.train_fused --resnet101 --bench  # on the card
+    python -m mxnet_tpu_torch.train_fused --resnet101 --bench --dtype bfloat16
 """
 from __future__ import annotations
 
@@ -61,7 +62,15 @@ def noise_shapes(net, batch):
             (batch, net.rpn_post_nms + net.max_gts, 2))
 
 
-def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9):
+def _dtype(dtype):
+    """None, a ``torch.dtype`` or its name -> None or the ``torch.dtype``."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))
+
+
+def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9,
+                         compute_dtype=None):
     """-> ``step(data, im_info, gt, nz_rpn, nz_prop, lr=learning_rate) ->
     (loss, parts)``: one momentum-SGD step on ``net``'s parameters, in place.
 
@@ -76,16 +85,36 @@ def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9):
     full fp32 (TF32 off, the caller's setting restored after).  ``step.params`` lists the
     parameters it updates and ``step.momentum`` their momentum buffers, in
     the same order.
+
+    Mixed precision, ``compute_dtype="bfloat16"`` (the JAX step's
+    ``compute_dtype``, train_fused.py:103-136): the parameters stay fp32
+    masters and are cast to bf16 for each step
+    (``torch.func.functional_call``; the gradient flows back through the
+    cast to the masters); the BatchNorm running statistics (buffers) stay
+    fp32; the image is cast to bf16, while ``im_info``, gt, the noise and
+    the rois stay fp32; every model output is upcast to fp32 before the
+    losses; gradients and momentum are fp32.  cuBLAS's reduced-precision
+    bf16 reductions are off inside the step, as TF32 is.
     """
     Hf, Wf = net.feat_shape
     A = net.num_anchors
     a_total = Hf * Wf * A
-    params = [p for p in net.parameters() if p.requires_grad]
+    cdtype = _dtype(compute_dtype)
+    named = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
     moms = [torch.zeros_like(p) for p in params]
+
+    def forward(data, im_info, gt, nz_rpn, nz_prop):
+        if cdtype is None:
+            return net(data, im_info, gt, nz_rpn, nz_prop)
+        cast = {n: p.to(cdtype) for n, p in named}
+        outs = torch.func.functional_call(
+            net, cast, (data.to(cdtype), im_info, gt, nz_rpn, nz_prop))
+        return [o.to(torch.float32) for o in outs]
 
     def losses(data, im_info, gt, nz_rpn, nz_prop):
         (rpn_cls, rpn_bbox, rpn_label, rpn_bt, rpn_bw, _rois, label,
-         bbox_target, bbox_weight, cls_score, bbox_pred) = net(
+         bbox_target, bbox_weight, cls_score, bbox_pred) = forward(
             data, im_info, gt, nz_rpn, nz_prop)
         # anchor order h·(W·A) + w·A + a, as the targets and MultiProposal
         logits = rpn_cls.reshape(batch, 2, A, Hf, Wf).permute(0, 3, 4, 2, 1)
@@ -134,6 +163,7 @@ def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9):
 
     step.params = params
     step.momentum = moms
+    step.compute_dtype = cdtype
     return step
 
 
@@ -159,19 +189,21 @@ def build_net(resnet101, image_shape=None, classes=None, device=None,
 
 
 def run_bench(resnet101, batch=1, iters=10, image_shape=None, classes=None,
-              lr=5e-4, windows=3, device=None, seed=0, verbose=True):
+              dtype=None, lr=5e-4, windows=3, device=None, seed=0, verbose=True):
     """Timed train steps: ``windows`` windows of ``iters`` steps after one
     warm-up step, the host clock around each window ending in a device
     synchronisation.  The step's noise comes from a ``torch.Generator`` on
-    the device.  -> (img_per_sec, ms_per_step, final_loss) of the best
-    window; prints them with the device's name."""
+    the device; ``dtype`` is the step's ``compute_dtype`` (None: fp32).
+    -> (img_per_sec, ms_per_step, final_loss) of the best window; prints
+    them with the device's name and the dtype."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     net, shape, classes = build_net(resnet101, image_shape, classes, dev, gen)
     rng = np.random.RandomState(seed)
     data, im_info, gt = (torch.from_numpy(a).to(dev) for a in
                          synthetic_coco(rng, batch, shape, classes, net.max_gts))
-    step = make_rfcn_train_step(net, batch, learning_rate=lr, momentum=0.9)
+    step = make_rfcn_train_step(net, batch, learning_rate=lr, momentum=0.9,
+                                compute_dtype=dtype)
     nz_gen = torch.Generator(device=dev).manual_seed(seed)
     shapes = noise_shapes(net, batch)
 
@@ -194,10 +226,10 @@ def run_bench(resnet101, batch=1, iters=10, image_shape=None, classes=None,
         best = dt if best is None else min(best, dt)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     if verbose:
-        print("rfcn train step on %s: batch %d, first step %.1f s, best of "
-              "%d windows %.2f ms/step (%.2f img/s), loss %.4f"
-              % (name, batch, first_s, windows, best * 1e3, batch / best,
-                 float(loss)), flush=True)
+        print("rfcn train step on %s: %s, batch %d, first step %.1f s, best "
+              "of %d windows %.2f ms/step (%.2f img/s), loss %.4f"
+              % (name, step.compute_dtype or torch.float32, batch, first_s,
+                 windows, best * 1e3, batch / best, float(loss)), flush=True)
     return batch / best, best * 1e3, float(loss)
 
 
@@ -209,14 +241,19 @@ def main():
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--steps", type=int, default=12)
     p.add_argument("--bench", action="store_true")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype of the step (default float32; "
+                   "bfloat16: bf16 trunk, fp32 masters and box math)")
     args = p.parse_args()
+    dtype = None if args.dtype in (None, "float32") else args.dtype
     if args.bench:
-        run_bench(args.resnet101, batch=args.batch_size, device=args.device)
+        run_bench(args.resnet101, batch=args.batch_size, dtype=dtype,
+                  device=args.device)
         return
     dev = resolve_device(args.device)
     net, shape, classes = build_net(args.resnet101, device=dev,
                                     generator=torch.Generator().manual_seed(0))
-    step = make_rfcn_train_step(net, args.batch_size)
+    step = make_rfcn_train_step(net, args.batch_size, compute_dtype=dtype)
     rng = np.random.RandomState(0)
     nz_gen = torch.Generator(device=dev).manual_seed(0)
     for s in range(args.steps):

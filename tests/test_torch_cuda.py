@@ -357,7 +357,7 @@ def test_autograd_functions_launch_the_kernels_and_never_the_plain(cuda, monkeyp
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on CUDA tensors")
 
-    for name in kernels.KERNELS:
+    for name in {n.split("[")[0] for n in kernels.KERNELS}:  # the bf16 rows share them
         monkeypatch.setattr(kernels, name + "_plain", refuse)
     rng = np.random.RandomState(4)
     t = _dconv_args(rng, 2, 300, 9, 11, 40, cuda)
@@ -369,9 +369,9 @@ def test_autograd_functions_launch_the_kernels_and_never_the_plain(cuda, monkeyp
     a = kernels.PSROIABuild.apply(yv, xv)
     (col.square().sum() + a.square().sum()).backward()
     torch.cuda.synchronize()
+    fp32 = ("dconv_col", "psroi_abuild", "dconv_col_bwd", "psroi_abuild_bwd")
     assert {n: k.wrapper.launches for n, k in kernels.KERNELS.items()} == {
-        "nms_alive": 0, "dconv_col": 1, "psroi_abuild": 1, "dconv_col_bwd": 1,
-        "psroi_abuild_bwd": 1, "quantize_int8": 0, "dequantize_int8": 0}
+        n: int(n in fp32) for n in kernels.KERNELS}
     assert all(bool(torch.isfinite(x.grad).all()) for x in leaves + [yv, xv])
 
 
@@ -448,7 +448,7 @@ def test_int8_symbol_launches_the_pair_and_never_the_plain(cuda, monkeypatch):
             return plain(*a, **k)
         return run
 
-    for name in kernels.KERNELS:
+    for name in {n.split("[")[0] for n in kernels.KERNELS}:  # the bf16 rows share them
         monkeypatch.setattr(kernels, name + "_plain",
                             refuse_cuda(getattr(kernels, name + "_plain")))
     net = resnet_symbol.get_symbol(10, 8, "3,32,32")
@@ -472,3 +472,158 @@ def test_int8_symbol_launches_the_pair_and_never_the_plain(cuda, monkeypatch):
     assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
     assert kernels.quantize_int8.launches == 10 + 7
     assert kernels.dequantize_int8.launches == 10
+
+
+# -- the bf16 instances -------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _bf16_close(got, ref, atol=0.0, what=""):
+    """bf16 ``got`` within one bf16 ulp of ``ref`` (plus ``atol``); prints
+    and returns how many values are not bit-equal."""
+    assert got.dtype == ref.dtype == BF and got.shape == ref.shape, what
+    g, r = got.float(), ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r.abs().clamp(min=2.0 ** -126)).exponent - 8)
+    bad = (g - r).abs() > ulp + atol
+    assert not bool(bad.any()), "%s: %d of %d values more than 1 bf16 ulp apart" % (
+        what, int(bad.sum()), bad.numel())
+    n = int((got != ref).sum())
+    print("%s %s: %d of %d values not bit-equal" % (what, tuple(got.shape), n, got.numel()))
+    return n
+
+
+# (BG, N, H, W, C): the serve call at batch 1 and 2 (BG 4 and 8), BG 1, and
+# shapes that take the one-thread-per-output kernel (N, C not multiples of 4)
+@pytest.mark.parametrize("shape", [(4, 21888, 38, 64, 128), (8, 21888, 38, 64, 128),
+                                   (1, 500, 19, 23, 128), (4, 501, 19, 23, 130),
+                                   (2, 22, 5, 6, 8)])
+def test_bf16_dconv_kernel_matches_plain(cuda, shape):
+    """A rounded to bf16, the products summed in fp32 and rounded once: the
+    plain version sums the same exact products in cuBLAS's order."""
+    BG, N, H, W, C = shape
+    rng = np.random.RandomState(C + N + 1)
+    t = _dconv_args(rng, BG, N, H, W, C, cuda)
+    t[7] = t[7].to(BF)
+    before = (kernels.dconv_col.launches, kernels.dconv_col_bf16.launches)
+    got = kernels.dconv_col(*t, (H, W))
+    assert (kernels.dconv_col.launches, kernels.dconv_col_bf16.launches) == (
+        before[0], before[1] + 1)
+    assert got.dtype == BF and got.stride() == (C * N, 1, N)
+    _bf16_close(got, kernels.dconv_col_plain(*t, (H, W)), what="dconv_col[bf16]")
+
+
+def _bf16_dconv_bwd_check(got, ref, t):
+    # the row sums: fp32, in another order; d_ft: fp32 atomics in an order
+    # that changes from run to run, rounded once
+    for name, a, b in zip(("d_ly", "d_lx", "d_lf"), got[:3], ref[:3]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()),
+                                   msg=lambda m, n=name: "%s: %s" % (n, m))
+    _bf16_close(got[3], ref[3], atol=1e-5 * float(ref[3].float().abs().max()),
+                what="dconv_col_bwd[bf16] d_ft")
+    y0, y1, x0, x1, _, _, lf = t[:7]
+    assert bool((got[0][y0 == y1] == 0).all()) and bool((got[1][x0 == x1] == 0).all())
+    assert bool((got[0][lf == 0] == 0).all()) and bool((got[1][lf == 0] == 0).all())
+
+
+# (B, DG, H, W, C, offset px, taps): the train path's res5 call at batch 1
+# (BG 4) and 2 (BG 8), BG 1, and 5 x 5 taps
+@pytest.mark.parametrize("shape", [(1, 4, 38, 64, 128, 1.5, 3), (2, 4, 38, 64, 128, 1.5, 3),
+                                   (1, 1, 19, 23, 16, 0.7, 3), (1, 2, 12, 14, 24, 1.0, 5)])
+@pytest.mark.parametrize("g_layout", ["contiguous", "channel_major"])
+@pytest.mark.parametrize("with_layout", [True, False])
+def test_bf16_dconv_bwd_kernel_matches_plain(cuda, shape, g_layout, with_layout):
+    B, DG, H, W, C, px, k = shape
+    rng = np.random.RandomState(H + C + 1)
+    t = _dconv_path_args(rng, B, DG, H, W, C, px, cuda, k=k)
+    t[7] = t[7].to(BF)
+    N = t[0].shape[1]
+    g = torch.from_numpy(rng.randn(B * DG, C, N).astype(np.float32)).to(cuda).to(BF)
+    g = g.transpose(1, 2)
+    if g_layout == "contiguous":
+        g = g.contiguous()
+    before = (kernels.dconv_col_bwd.launches, kernels.dconv_col_bwd_bf16.launches)
+    got = kernels.dconv_col_bwd(*t, g, (H, W), (k * k, H, W) if with_layout else None)
+    assert (kernels.dconv_col_bwd.launches, kernels.dconv_col_bwd_bf16.launches) == (
+        before[0], before[1] + 1)
+    _bf16_dconv_bwd_check(got, kernels.dconv_col_bwd_plain(*t, g, (H, W)), t)
+
+
+@pytest.mark.parametrize("shape", ABUILD_SHAPES + [(14700, 16, 38, 64)])
+def test_bf16_abuild_kernel_matches_plain(cuda, shape):
+    """The same fp32 sum of non-negative products, stored in bf16."""
+    n, s, h, w = shape
+    rng = np.random.RandomState(n + 1)
+    yv = torch.from_numpy(rng.rand(n, s, h).astype(np.float32)).to(cuda)
+    xv = torch.from_numpy(rng.rand(n, s, w).astype(np.float32)).to(cuda)
+    before = kernels.psroi_abuild_bf16.launches
+    got = kernels.psroi_abuild(yv, xv, BF)
+    assert kernels.psroi_abuild_bf16.launches == before + 1
+    _bf16_close(got, kernels.psroi_abuild_plain(yv, xv, BF), what="psroi_abuild[bf16]")
+
+
+@pytest.mark.parametrize("shape", [(6272, 16, 38, 64), (7, 3, 5, 200),
+                                   (20, 16, 300, 64)] + ABUILD_SHAPES[3:])
+def test_bf16_abuild_bwd_kernel_matches_plain(cuda, shape):
+    n, s, h, w = shape
+    rng = np.random.RandomState(n + 1)
+    yv = torch.from_numpy(rng.rand(n, s, h).astype(np.float32)).to(cuda)
+    xv = torch.from_numpy(rng.rand(n, s, w).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(n, h, w).astype(np.float32)).to(cuda).to(BF)
+    before = kernels.psroi_abuild_bwd_bf16.launches
+    got = kernels.psroi_abuild_bwd(yv, xv, g)
+    assert kernels.psroi_abuild_bwd_bf16.launches == before + 1
+    ref = kernels.psroi_abuild_bwd_plain(yv, xv, g)
+    # fp32 sums of up to 300 products of bf16 values, in a fixed order
+    # against torch's reduction order
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    second = kernels.psroi_abuild_bwd(yv, xv, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, second))
+
+
+def test_bf16_autograd_functions_launch_the_bf16_kernels_only(cuda, monkeypatch):
+    """bf16 on the card reaches neither a plain version nor an fp32 kernel."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in {n.split("[")[0] for n in kernels.KERNELS}:
+        monkeypatch.setattr(kernels, name + "_plain", refuse)
+    rng = np.random.RandomState(5)
+    t = _dconv_args(rng, 2, 300, 9, 11, 40, cuda)
+    t[7] = t[7].to(BF)
+    leaves = [a.requires_grad_() for a in t[4:]]
+    yv = torch.rand(50, 16, 9, device=cuda, requires_grad=True)
+    xv = torch.rand(50, 16, 11, device=cuda, requires_grad=True)
+    kernels.reset_launches()
+    col = kernels.DConvCol.apply(*t[:4], *leaves, (9, 11))
+    a = kernels.PSROIABuild.apply(yv, xv, BF)
+    assert col.dtype == a.dtype == BF
+    (col.float().square().sum() + a.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    bf16 = ("dconv_col[bf16]", "psroi_abuild[bf16]", "dconv_col_bwd[bf16]",
+            "psroi_abuild_bwd[bf16]")
+    assert {n: k.wrapper.launches for n, k in kernels.KERNELS.items()} == {
+        n: int(n in bf16) for n in kernels.KERNELS}
+    assert leaves[3].grad.dtype == BF
+    assert all(bool(torch.isfinite(x.grad.float()).all()) for x in leaves + [yv, xv])
+
+
+def test_bf16_wrappers_raise_on_float16(cuda):
+    rng = np.random.RandomState(6)
+    t = _dconv_args(rng, 1, 40, 5, 6, 8, cuda)
+    h = torch.float16
+    with pytest.raises(ValueError, match="float16"):
+        kernels.dconv_col(*t[:7], t[7].to(h), (5, 6))
+    with pytest.raises(ValueError, match="float16"):
+        kernels.dconv_col_bwd(*t[:7], t[7].to(h), torch.rand(1, 40, 8, device=cuda).to(h),
+                              (5, 6))
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.dconv_col_bf16(*t, (5, 6))  # an fp32 ft to the bf16 instance
+    yv, xv = torch.rand(4, 2, 3, device=cuda), torch.rand(4, 2, 5, device=cuda)
+    with pytest.raises(ValueError, match="float16"):
+        kernels.psroi_abuild(yv, xv, h)
+    with pytest.raises(ValueError, match="float16"):
+        kernels.psroi_abuild_bwd(yv, xv, torch.rand(4, 3, 5, device=cuda).to(h))

@@ -2,6 +2,14 @@
 """Time the port's CUDA kernels at the R-FCN path's calls, and compare builds.
 
     python3 tools/bench_kernels.py [--kernels a,b,...] [--against DIR ...]
+    python3 tools/bench_kernels.py --dtype bfloat16 [--kernels a,b,...]
+
+With ``--dtype bfloat16`` the rows are the bf16 instances of the dconv and
+A-build kernels (``dconv_col[bf16]`` and so on; NMS stays fp32) on the bf16
+path's calls: the forward calls of the model after ``cast("bfloat16")``,
+the backward calls of a ``compute_dtype="bfloat16"`` train step, and the
+A-build pair's seeded calls with A (and g) in bf16; bf16 outputs are
+compared within one bf16 ulp.  ``--against`` takes fp32 rows only.
 
 Kernels (``--kernels``, default all five):
 
@@ -205,7 +213,8 @@ def as_tuple(x):
 
 
 def agree(name, got, ref):
-    """(equal bit for bit, max |difference|, within the smoke's tolerance)."""
+    """(equal bit for bit, max |difference|, within the smoke's tolerance:
+    one bf16 ulp for a bf16 output)."""
     got, ref = as_tuple(got), as_tuple(ref)
     equal = all(torch.equal(a, b) for a, b in zip(got, ref))
     diff = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -214,20 +223,28 @@ def agree(name, got, ref):
         return equal, diff, equal
     close = True
     for a, b in zip(got, ref):
-        scale = float(b.abs().max()) if b.numel() else 0.0
+        scale = float(b.float().abs().max()) if b.numel() else 0.0
+        if a.dtype == torch.bfloat16:
+            slack = 1e-5 * scale if name == "dconv_col_bwd" else 0.0
+            close &= bool(((a.float() - b.float()).abs()
+                           <= chip_smoke.bf16_ulp(b) + slack).all())
+            continue
         rtol = 1e-4 if name == "dconv_col_bwd" else 1e-5
         atol = 1e-5 if name in ("psroi_abuild", "dconv_col") else 1e-5 * scale
         close &= scale == scale and bool(torch.allclose(a, b, rtol=rtol, atol=atol))
     return equal, diff, close
 
 
-def abuild_inputs(name, shape, seed):
+def abuild_inputs(name, shape, seed, bf16=False):
     n, s, h, w = shape
     rng = np.random.RandomState(seed)
     t = [rng.rand(n, s, h), rng.rand(n, s, w)]
     if name == "psroi_abuild_bwd":
         t.append(rng.randn(n, h, w))
-    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in t]
+    t = [torch.from_numpy(a.astype(np.float32)).cuda() for a in t]
+    if bf16 and name == "psroi_abuild_bwd":
+        t[2] = t[2].to(torch.bfloat16)  # the cotangent of a bf16 A
+    return t
 
 
 def dconv_inputs(shape, seed):
@@ -245,10 +262,13 @@ def dconv_inputs(shape, seed):
                  + [(H, W)])
 
 
-def path_calls(names, dev, config):
-    """The calls of ``names`` (nms_alive, dconv_col, dconv_col_bwd) on the R-FCN path of
-    ``config`` (``chip_smoke.FULL``: the full-width R-101):
-    {name: [(label, args, kw), ...]}."""
+def path_calls(names, dev, config, bf16=False):
+    """The calls of ``names`` (nms_alive, dconv_col, dconv_col_bwd, or their
+    bf16 rows) on the R-FCN path of ``config`` (``chip_smoke.FULL``: the
+    full-width R-101), in bf16 the model cast to bf16 for the forward and
+    the bf16 train step for the backward: {name: [(label, args, kw), ...]}."""
+    import copy
+
     from mxnet_tpu_torch import train_fused
     from mxnet_tpu_torch.gluon.model_zoo import DeformableRFCN
 
@@ -257,15 +277,18 @@ def path_calls(names, dev, config):
     chip_smoke.randomize_deformable(net, gen)
     H, W = net.image_shape
     data, info = chip_smoke.make_request(gen, [[H, W, 1.0]], (H, W), dev)
+    snet = copy.deepcopy(net).cast("bfloat16") if bf16 else net
+    data = data.to(snet.rfcn_cls.weight.dtype)
     calls = {n: [] for n in names}
-    serve = [n for n in names if n in ("nms_alive", "dconv_col")]
-    got = chip_smoke.capture_calls(kernels, serve, lambda: net(data, info))
+    serve = [n for n in names if n.split("[")[0] in ("nms_alive", "dconv_col")]
+    got = chip_smoke.capture_calls(kernels, serve, lambda: snet(data, info))
     for n, lst in got.items():
         calls[n] += [("serve", a, k) for a, k in lst[:1]]
-    train = [n for n in names if n in ("nms_alive", "dconv_col_bwd")]
+    train = [n for n in names if n.split("[")[0] in ("nms_alive", "dconv_col_bwd")]
     if train:
         step = train_fused.make_rfcn_train_step(net, 1, learning_rate=chip_smoke.LR,
-                                                momentum=0.9)
+                                                momentum=0.9,
+                                                compute_dtype="bfloat16" if bf16 else None)
         inputs = chip_smoke.train_inputs(net, np.random.RandomState(chip_smoke.SEED), 1,
                                          dev)
         nz = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
@@ -275,7 +298,7 @@ def path_calls(names, dev, config):
         for n, lst in got.items():
             calls[n] += [("train", tuple(a.detach() if torch.is_tensor(a) else a
                                          for a in args), kw) for args, kw in lst[:1]]
-    del net
+    del net, snet
     torch.cuda.empty_cache()
     return calls
 
@@ -332,11 +355,18 @@ def main():
     ap.add_argument("--against", action="append", default=[],
                     help="a directory of .cu sources to build and compare with "
                     "(repeatable)")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="bfloat16: the bf16 instances on the bf16 path's calls")
     opt = ap.parse_args()
+    bf16 = opt.dtype == "bfloat16"
     names = [n for n in opt.kernels.split(",") if n]
     bad = [n for n in names if n not in ALL]
     if bad:
         sys.exit("bench_kernels: unknown kernels %s" % bad)
+    if bf16 and opt.against:
+        sys.exit("bench_kernels: --against compares fp32 rows only")
+    if bf16:  # the bf16 rows; NMS has none
+        names = [n + "[bf16]" for n in names if n != "nms_alive"]
     if not torch.cuda.is_available():
         sys.exit("bench_kernels: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -352,34 +382,36 @@ def main():
 
     calls = {}  # name -> [(label, args, kw)]
     for n in names:
-        if n in ABUILD_CALLS:
-            calls[n] = [("path", tuple(abuild_inputs(n, ABUILD_CALLS[n], 0)), {})]
-    want = [n for n in names if n in ("nms_alive", "dconv_col", "dconv_col_bwd")]
+        b = n.split("[")[0]
+        if b in ABUILD_CALLS:
+            calls[n] = [("path", tuple(abuild_inputs(b, ABUILD_CALLS[b], 0, bf16)), {})]
+    want = [n for n in names if n.split("[")[0] in ("nms_alive", "dconv_col", "dconv_col_bwd")]
     if want:
         calls.update(path_calls(want, torch.device("cuda"),
-                                dict(chip_smoke.FULL, units=(3, 4, 23, 3))))
+                                dict(chip_smoke.FULL, units=(3, 4, 23, 3)), bf16))
 
     for n in names:  # the builds against each other, on every call compared
         k = kernels.KERNELS[n]
+        b = n.split("[")[0]
         extra = []
-        if n in ABUILD_CALLS:
-            extra = [("test", tuple(abuild_inputs(n, s, i)), {})
+        if b in ABUILD_CALLS:
+            extra = [("test", tuple(abuild_inputs(b, s, i, bf16)), {})
                      for i, s in enumerate(ABUILD_TEST_SHAPES)
-                     if not (n == "psroi_abuild_bwd" and s[2] == 800)]
+                     if not (b == "psroi_abuild_bwd" and s[2] == 800)]
         elif n == "dconv_col":
             extra = [("test", dconv_inputs(s, i), {}) for i, s in enumerate(DCONV_TEST_SHAPES)]
         for label, args, kw in calls[n] + extra:
             got = k.wrapper(*args, **kw)
-            row = {"name": n, "call": label, **describe(n, args, kw, got)}
+            row = {"name": n, "call": label, **describe(b, args, kw, got)}
             if label != "test":
                 ref = k.plain(*args, **kw)
                 row["vs_plain"] = dict(zip(("bitwise_equal", "max_abs_diff", "within_tol"),
-                                           agree(n, got, ref)))
-            row["rerun_equal"] = agree(n, got, k.wrapper(*args, **kw))[0]
+                                           agree(b, got, ref)))
+            row["rerun_equal"] = agree(b, got, k.wrapper(*args, **kw))[0]
             for o in others:
                 row["vs_" + o.label] = dict(zip(("bitwise_equal", "max_abs_diff",
                                                   "within_tol"),
-                                                 agree(n, got, o.call(n, args, kw))))
+                                                 agree(b, got, o.call(n, args, kw))))
             torch.cuda.synchronize()
             say(row)
 

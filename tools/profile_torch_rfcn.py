@@ -4,6 +4,11 @@ step, goes on the GPU.
 
     python3 tools/profile_torch_rfcn.py            # inference forwards
     python3 tools/profile_torch_rfcn.py --train    # train steps
+    python3 tools/profile_torch_rfcn.py --dtype bfloat16 [--train]
+
+With ``--dtype bfloat16`` the forwards run on the model after
+``cast("bfloat16")`` with bf16 images, and the train steps take
+``compute_dtype="bfloat16"`` (fp32 masters, bf16 trunk, fp32 box math).
 
 With ``--train`` the same model takes momentum-SGD train steps
 (``mxnet_tpu_torch/train_fused.py``) on one synthetic COCO batch with fresh
@@ -39,7 +44,7 @@ ITERS = 5
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("nms_alive", ("nms_mask_kernel", "nms_scan_kernel")),
-    ("dconv_col_bwd", ("dconv_col_bwd_",)),
+    ("dconv_col_bwd", ("dconv_col_bwd_", "round_to_bf16")),
     ("dconv_col", ("dconv_col_tiled_kernel", "dconv_col_kernel")),
     ("psroi_abuild_bwd", ("psroi_abuild_bwd_",)),
     ("psroi_abuild", ("psroi_abuild_kernel",)),
@@ -70,12 +75,12 @@ def device_time_us(evt):
 def forward_runner(net, B, gen):
     H, W = net.image_shape
     dev = net.device
-    data = torch.randn((B, 3, H, W), generator=gen).to(dev)
+    data = torch.randn((B, 3, H, W), generator=gen).to(dev, net.rfcn_cls.weight.dtype)
     info = torch.tensor([[H, W, 1.0]] * B).to(dev)
     return lambda: net(data, info)
 
 
-def step_runner(net, B, seed):
+def step_runner(net, B, seed, dtype=None):
     import numpy as np
 
     from mxnet_tpu_torch import train_fused
@@ -84,7 +89,8 @@ def step_runner(net, B, seed):
     batch = train_fused.synthetic_coco(np.random.RandomState(seed), B,
                                        net.image_shape, net.classes, net.max_gts)
     inputs = [torch.from_numpy(a).to(dev) for a in batch]
-    step = train_fused.make_rfcn_train_step(net, B, learning_rate=5e-4, momentum=0.9)
+    step = train_fused.make_rfcn_train_step(net, B, learning_rate=5e-4, momentum=0.9,
+                                            compute_dtype=dtype)
     nz_gen = torch.Generator(device=dev).manual_seed(seed)
     shapes = train_fused.noise_shapes(net, B)
     return lambda: step(*inputs, *(torch.rand(s, generator=nz_gen, device=dev)
@@ -95,7 +101,11 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true",
                    help="profile train steps instead of inference forwards")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16: the model cast to bf16 (forwards) or the bf16 "
+                   "train step")
     args = p.parse_args()
+    bf16 = args.dtype == "bfloat16"
     if not torch.cuda.is_available():
         sys.exit("profile_torch_rfcn: needs a CUDA device")
     from chip_smoke import FULL, SEED, randomize_deformable
@@ -104,12 +114,15 @@ def main():
     gen = torch.Generator().manual_seed(SEED)
     net = rfcn_resnet101(device="cuda", generator=gen, **FULL)
     randomize_deformable(net, gen)
+    if bf16 and not args.train:
+        net.cast("bfloat16")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     what = "train_step" if args.train else "forward"
     for B in BATCHES:
-        run = step_runner(net, B, SEED) if args.train else forward_runner(net, B, gen)
+        run = (step_runner(net, B, SEED, "bfloat16" if bf16 else None) if args.train
+               else forward_runner(net, B, gen))
         for _ in range(3):
             run()
         torch.cuda.synchronize()
@@ -148,7 +161,7 @@ def main():
         wall = sorted(walls)[len(walls) // 2]
         kernels.sort(reverse=True)
         print(json.dumps({
-            "what": what, "batch": B, "card": card,
+            "what": what, "dtype": args.dtype, "batch": B, "card": card,
             "host_syncs_per_%s" % what: syncs,
             "wall_ms_median": wall, "wall_ms": walls,
             "traced_wall_ms": traced_wall,
