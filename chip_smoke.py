@@ -385,7 +385,10 @@ def work(name, args, out):
     each input read once, each output written once, at its element size (a
     bf16 instance's bf16 tensors count 2 bytes an element; the fp32 buffer
     that the bf16 dconv backward sums d_ft in is scratch, not counted).  The
-    bf16 instances compute in fp32 on the CUDA cores, as the fp32 ones do."""
+    operations are counted at the float32 rate, as the CUDA cores do them;
+    the bf16 dconv backward forms d_ft's share (8 of its 31 per row and
+    channel) on the tensor cores, so its operations bound is an upper one,
+    and its bytes bound the larger at the R-FCN calls."""
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     name = name.split("[")[0]
     if name == "dconv_col":

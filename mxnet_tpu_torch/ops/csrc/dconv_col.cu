@@ -46,10 +46,21 @@
 // weight A = yfac xfac lf in fp32 (the two weights of a clamped corner
 // merged into one, as the one-hot compare merges them), rounded to bf16;
 // its products with ft, exact in fp32, summed in fp32 in corner order and
-// rounded once to the bf16 column.  The same two designs, templated on the
-// element type: 8-byte loads of four bf16 channels and 8-byte stores of four
-// bf16 rows.  Its bound at the res5 call is half the fp32 one: 22.4 MB of
-// col, 2.5 MB of ft and 2.5 MB of factors, about 8 us at 3.35 TB/s.
+// rounded once to the bf16 column.  Its bound at the res5 call is half the
+// fp32 one: 22.4 MB of col, 2.5 MB of ft and 2.5 MB of factors, about 8 us
+// at 3.35 TB/s.  Its gathers are not: four corner rows per output row, 89.6
+// MB from L2 at the res5 call, whose pace is set by the bytes a lane keeps
+// in flight.  So where C % 8 == 0 and N % 8 == 0 (the R-FCN calls) it has a
+// design of its own, dconv_col_tiled_bf16x8_kernel: the fp32 design's tiles
+// and factor stages, with 16-byte loads of eight bf16 channels, sixteen
+// lanes over a 128-channel corner row, so that a warp gathers two rows per
+// load and a lane keeps 16 loads of 16 bytes in flight as an fp32 lane does
+// (4 rows x 4 corners); its 8 x 4 (channel x row) register block goes to the
+// shared tile as eight 8-byte stores of four rows, whose 8-byte chunk is
+// XOR-swizzled by the channel, and whole 128-byte channel rows of col (64
+// bf16 rows) leave as 16-byte streaming stores.  Other bf16 shapes take the
+// fp32 designs, templated on the element type (8-byte loads of four
+// channels and stores of four rows; one thread per output).
 //
 // Contract: y0, y1 in [0, H), x0, x1 in [0, W).  The port's only caller
 // (ops/detection.py deformable_convolution) builds them clamped to the map.
@@ -212,6 +223,130 @@ dconv_col_tiled_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
   }
 }
 
+// The bf16 design for C % 8 == 0 and N % 8 == 0 (see the note at the top):
+// half-warp h of warp v gathers rows 8 v + 4 h .. + 3 of a tile, lane l % 16
+// channels 8 (l % 16) .. + 7 of a 128-channel pass.
+constexpr int kGroup8 = 4;  // rows a half-warp gathers at once
+static_assert(kTileN == kWarps * 2 * kGroup8, "one group of eight rows a warp");
+
+// the shared tile's 8-byte chunk (four rows) for channel `ch`, chunk `q` of its row
+__device__ __forceinline__ int swizzle8(int ch, int q) { return q ^ ((ch >> 3) & 15); }
+
+// eight bf16 as floats
+__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
+  const unsigned v[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+dconv_col_tiled_bf16x8_kernel(const int* __restrict__ y0, const int* __restrict__ y1,
+                              const int* __restrict__ x0, const int* __restrict__ x1,
+                              const float* __restrict__ ly, const float* __restrict__ lx,
+                              const float* __restrict__ lf, const mx::bf16* __restrict__ ft,
+                              long long tiles, int n, int w, int hw, int c,
+                              mx::bf16* __restrict__ col) {
+  __shared__ __align__(16) uint2 tile[kChunkC][kTileN / 4];  // [channel][four rows], swizzled
+  __shared__ __align__(16) int corner[2][4][kTileN];   // y0, y1, x0, x1
+  __shared__ __align__(16) float lerp[2][3][kTileN];   // ly, lx, lf
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tiles_per_bg = (n + kTileN - 1) / kTileN;
+
+  // as dconv_col_tiled_kernel's
+  auto stage = [&](long long t, int s) {
+    if (tid < 7 * kChunks) {
+      const int v = tid / kChunks, k = tid % kChunks;
+      const int row = (int)(t % tiles_per_bg) * kTileN + 4 * k;
+      if (row < n) {
+        const long long off = (t / tiles_per_bg) * n + row;
+        if (v < 4) {
+          const int* src = (v == 0 ? y0 : v == 1 ? y1 : v == 2 ? x0 : x1) + off;
+          mx::cp_async16(reinterpret_cast<float*>(&corner[s][v][4 * k]),
+                         reinterpret_cast<const float*>(src));
+        } else {
+          const float* src = (v == 4 ? ly : v == 5 ? lx : lf) + off;
+          mx::cp_async16(&lerp[s][v - 4][4 * k], src);
+        }
+      }
+    }
+    mx::cp_async_commit();
+  };
+
+  const int ch = 8 * (lane & 15);                        // this lane's first channel of a pass
+  const int r0 = warp * 2 * kGroup8 + (lane >> 4) * kGroup8;  // this half-warp's first row
+  int s = 0;
+  if (blockIdx.x < tiles) stage(blockIdx.x, 0);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, s ^= 1) {
+    if (t + gridDim.x < tiles) {
+      stage(t + gridDim.x, s ^ 1);
+      mx::cp_async_wait<1>();
+    } else {
+      mx::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const long long bg = t / tiles_per_bg;
+    const int n0 = (int)(t % tiles_per_bg) * kTileN;
+    const int rows = min(kTileN, n - n0);  // a multiple of 8
+    const mx::bf16* f = ft + bg * hw * (long long)c;
+    mx::bf16* out = col + bg * (long long)c * n + n0;
+    for (int c0 = 0; c0 < c; c0 += kChunkC) {
+      const int cw = min(kChunkC, c - c0);  // a multiple of 8
+      if (ch < cw && r0 < rows) {
+        uint4 p[kGroup8][4];
+#pragma unroll
+        for (int i = 0; i < kGroup8; ++i) {
+          const int r = r0 + i;
+          const int a0 = corner[s][0][r] * w, a1 = corner[s][1][r] * w;
+          const int b0 = corner[s][2][r], b1 = corner[s][3][r];
+          const mx::bf16* q = f + c0 + ch;
+          p[i][0] = __ldg(reinterpret_cast<const uint4*>(q + (long long)(a0 + b0) * c));
+          p[i][1] = __ldg(reinterpret_cast<const uint4*>(q + (long long)(a0 + b1) * c));
+          p[i][2] = __ldg(reinterpret_cast<const uint4*>(q + (long long)(a1 + b0) * c));
+          p[i][3] = __ldg(reinterpret_cast<const uint4*>(q + (long long)(a1 + b1) * c));
+        }
+        float o[8][kGroup8];  // [channel][row]
+#pragma unroll
+        for (int i = 0; i < kGroup8; ++i) {
+          const int r = r0 + i;
+          const Mix<mx::bf16> m(lerp[s][0][r], lerp[s][1][r], lerp[s][2][r],
+                                corner[s][0][r] == corner[s][1][r],
+                                corner[s][2][r] == corner[s][3][r]);
+          float f00[8], f01[8], f10[8], f11[8];
+          unpack8(p[i][0], f00);
+          unpack8(p[i][1], f01);
+          unpack8(p[i][2], f10);
+          unpack8(p[i][3], f11);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) o[j][i] = m(f00[j], f01[j], f10[j], f11[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          tile[ch + j][swizzle8(ch + j, r0 / 4)] =
+              mx::float4_to_bf16x4(make_float4(o[j][0], o[j][1], o[j][2], o[j][3]));
+      }
+      __syncthreads();
+      // whole channel rows of col: eight 16-byte pieces (eight rows) a
+      // channel, each two swizzled chunks of one aligned pair, swapped where
+      // the swizzle's low bit is set
+      for (int e = tid; e < cw * (kTileN / 8); e += kThreads) {
+        const int cc = e / (kTileN / 8), k = e % (kTileN / 8);
+        const int sw = (cc >> 3) & 15;
+        uint4 v = *reinterpret_cast<const uint4*>(&tile[cc][(2 * k) ^ (sw & 14)]);
+        if (sw & 1) v = make_uint4(v.z, v.w, v.x, v.y);
+        if (8 * k < rows)
+          __stcs(reinterpret_cast<uint4*>(out + (long long)(c0 + cc) * n + 8 * k), v);
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // any C, N and alignment: one thread per output element, in col's
 // channel-major order (threads along n)
 template <typename T>
@@ -282,11 +417,24 @@ extern "C" int mx_dconv_col(const void* y0, const void* y1, const void* x0,
   return dconv_col<float>(y0, y1, x0, x1, ly, lx, lf, ft, col, bg, n, h, w, c, vec, stream);
 }
 
-// The same with ft and col bf16 (the bf16 contract above).
+// The same with ft and col bf16 (the bf16 contract above); with `vec`, C % 8
+// == 0 and N % 8 == 0 the bf16 design, else the fp32 ones in bf16.
 extern "C" int mx_dconv_col_bf16(const void* y0, const void* y1, const void* x0,
                                  const void* x1, const void* ly, const void* lx,
                                  const void* lf, const void* ft, void* col, int bg,
                                  int n, int h, int w, int c, int vec, void* stream) {
-  return dconv_col<mx::bf16>(y0, y1, x0, x1, ly, lx, lf, ft, col, bg, n, h, w, c, vec,
-                             stream);
+  if (!(vec && c % 8 == 0 && n % 8 == 0))
+    return dconv_col<mx::bf16>(y0, y1, x0, x1, ly, lx, lf, ft, col, bg, n, h, w, c, vec,
+                               stream);
+  const long long tiles = (long long)bg * ((n + kTileN - 1) / kTileN);
+  int blocks = 0;
+  cudaError_t err =
+      mx::persistent_grid(dconv_col_tiled_bf16x8_kernel, kThreads, 0, tiles, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dconv_col_tiled_bf16x8_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(y0), static_cast<const int*>(y1), static_cast<const int*>(x0),
+      static_cast<const int*>(x1), static_cast<const float*>(ly), static_cast<const float*>(lx),
+      static_cast<const float*>(lf), static_cast<const mx::bf16*>(ft), tiles, n, w, h * w, c,
+      static_cast<mx::bf16*>(col));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -46,15 +46,52 @@
 // The bf16 instance (mx_dconv_col_bwd_bf16: bf16 ft, g and d_ft) follows
 // the TPU kernel's bf16 contract (_dconv_bwd_kernel_factory, _dconv_bwd):
 // dA and the three row sums in fp32 from the bf16 values and the fp32
-// factors, written fp32; d_ft = bf16(A)^T g, where each corner's scatter
-// weight is the forward's one-hot weight rounded to bf16 (a clamped
-// corner's two weights merged), accumulated in fp32 over every row, in an
-// fp32 buffer that the caller passes, and rounded once to bf16 at the end
-// by a second kernel.  Both designs, templated on the element type: the
-// tiled one stages its ft window in bf16 (8-byte cp.async copies, half the
-// window's room) and converts four channels as it reads them, and takes
-// the merged bf16 weights as its corners' scatter weights, so a clamped
-// corner's second weight is 0 and adds nothing.
+// factors, written fp32; d_ft = bf16(A)^T g, where each corner's weight is
+// the forward's one-hot weight rounded to bf16 (a clamped corner's two
+// weights merged on its first corner, the second 0), summed in fp32 over
+// every row and rounded once to bf16.  The TPU kernel forms that d_ft as a
+// product on its matrix unit (A^T @ g, bf16 in, fp32 sums), and so does this
+// one, on the tensor cores: the products of two bf16 values are exact and
+// the sums fp32, which is the contract.  Its design (dconv_col_bwd_bf16_
+// tiled_kernel below) is its own:
+//   - one cooperative launch a call, a persistent grid sized by the
+//     occupancy query (one 16-warp block an SM): it zeroes the fp32 buffer
+//     d_ft is summed in (passed by the caller), walks its tiles by a
+//     stride, grid-syncs and rounds d_ft to bf16.  The grid's sync after
+//     the zeroing sits before a block's first atomic, so the zeroing
+//     overlaps the first tile's taps.  No memset and no second kernel;
+//   - the tiles of the fp32 design (kTileH x kTileW positions, all taps),
+//     all 128 channels of the R-FCN calls in one pass: the ft window staged
+//     in bf16, and g channel-major into a ring of three taps' slots, one
+//     16-byte cp.async a thread, two taps ahead (a channel's values of one
+//     tile row are 8 consecutive rows);
+//   - per tap, one block barrier: 128 threads write tap t + 1's 32 rows of
+//     A (their merged bf16 weights, one entry a thread) into a zeroed
+//     [window pixel][row] tile and 128 reset tap t - 1's (a ring of three
+//     tiles), while every warp runs mma.sync m16n8k16 (bf16 in, fp32 sums)
+//     on its part of d_window (pixels x channels) += A_t^T g_t, skipping
+//     the 16-pixel m-tiles the tap's rows do not reach; the sums stay in
+//     registers over the taps and are added to the fp32 buffer once a tile
+//     (16-byte red.global.add where not all zero);
+//   - the three row sums stay on the CUDA cores as in the fp32 design, from
+//     the staged g and the bf16 ft window, eight channels a warp, the
+//     warps' parts added a tap later by a fixed tree (the same bits every
+//     call): at most 4 C multiply-adds a row, where the tensor cores would
+//     form all of dA;
+//   - a tile whose window overflows kMaxWindow takes its rows one warp each
+//     (fp32 atomics into the buffer), and every other call (contiguous g,
+//     no layout, more than kMaxTaps taps) the row design, each inside the
+//     same single cooperative launch (dconv_col_bwd_bf16_rows_kernel).
+// Bound on the card: bytes.  At the res5 call (batch 1) it reads g (22.4 MB
+// of bf16), the factors (2.5 MB) and ft (2.5 MB) and writes d_ft (2.5 MB)
+// and the row sums (1 MB): about 31 MB, 9.2 us at 3.35 TB/s.  The fp32
+// buffer (5 MB, written, added to and read once) stays in the 50 MB L2.
+// What stops it (timing splits on an H100, PERF.md): the tap steps' chains
+// of dependent work between block barriers (ldmatrix -> mma; loads ->
+// multiply-adds), with one block an SM to hide them; the products of the
+// mostly-zero A tiles (~4 of ~150 window pixels a row) and the ~4,800
+// 16-byte atomics a tile (windows overlap ~5x); and 320 tiles on 132 SMs.
+#include <cooperative_groups.h>
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -145,28 +182,18 @@ __device__ __forceinline__ void bwd_row(
   }
 }
 
-template <typename T>
 __global__ void dconv_col_bwd_kernel(
     const int* __restrict__ y0, const int* __restrict__ y1,
     const int* __restrict__ x0, const int* __restrict__ x1,
     const float* __restrict__ ly, const float* __restrict__ lx,
-    const float* __restrict__ lf, const T* __restrict__ ft,
-    const T* __restrict__ g, long long rows, int n, int w, int hw, int c,
+    const float* __restrict__ lf, const float* __restrict__ ft,
+    const float* __restrict__ g, long long rows, int n, int w, int hw, int c,
     long long g_row, long long g_chan, float* __restrict__ dly,
     float* __restrict__ dlx, float* __restrict__ dlf, float* __restrict__ dft) {
   const long long r = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (r >= rows) return;  // whole warps leave together: rows split by warp
-  bwd_row<T>(r, threadIdx.x & 31, y0, y1, x0, x1, ly, lx, lf, ft, g, n, w, hw, c, g_row,
-             g_chan, dly, dlx, dlf, dft);
-}
-
-// The bf16 instance's last step: d_ft rounded once from its fp32 sums.
-__global__ void round_to_bf16_kernel(const float* __restrict__ acc, long long total,
-                                     mx::bf16* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride)
-    out[e] = __float2bfloat16_rn(acc[e]);
+  bwd_row<float>(r, threadIdx.x & 31, y0, y1, x0, x1, ly, lx, lf, ft, g, n, w, hw, c, g_row,
+                 g_chan, dly, dlx, dlf, dft);
 }
 
 // 16-byte atomic add (sm_90): one request where four scalar ones would go.
@@ -226,17 +253,13 @@ static_assert(kWindowFloats >= kTiledWarps * kMaxTaps * 3 * 32, "room for the ro
 
 // grid (ceil(Wo / kTileW), ceil(Ho / kTileH), BG), kTiledWarps * 32
 // threads, kTiledSmem bytes of dynamic shared memory; three blocks an SM.
-// T is the element type of ft and g: a bf16 ft window is staged in bf16
-// and converted as it is read, and d_ft (for bf16 the caller's fp32
-// buffer) is summed in fp32.
-template <typename T>
 __global__ void __launch_bounds__(kTiledWarps * 32, 3)
 dconv_col_bwd_tiled_kernel(
     const int* __restrict__ y0, const int* __restrict__ y1,
     const int* __restrict__ x0, const int* __restrict__ x1,
     const float* __restrict__ ly, const float* __restrict__ lx,
-    const float* __restrict__ lf, const T* __restrict__ ft,
-    const T* __restrict__ g, int n, int w, int hw, int c, int k2, int ho,
+    const float* __restrict__ lf, const float* __restrict__ ft,
+    const float* __restrict__ g, int n, int w, int hw, int c, int k2, int ho,
     int wo, float* __restrict__ dly, float* __restrict__ dlx,
     float* __restrict__ dlf, float* __restrict__ dft) {
   extern __shared__ __align__(16) float sm[];
@@ -254,9 +277,9 @@ dconv_col_bwd_tiled_kernel(
   const int hwo = ho * wo;
   const int row0 = oy * wo + ox;  // row of tap 0; tap t adds t Ho Wo
   const long long fb = (long long)bg * n;
-  const T* ftb = ft + (long long)bg * hw * c;
+  const float* ftb = ft + (long long)bg * hw * c;
   float* dftb = dft + (long long)bg * hw * c;
-  const T* gb = g + (long long)bg * c * n;
+  const float* gb = g + (long long)bg * c * n;
 
   // warp w reads the rows of taps w and w + kTiledWarps
   if (tid == 0) win[0] = win[1] = INT_MAX, win[2] = win[3] = INT_MIN;
@@ -306,8 +329,8 @@ dconv_col_bwd_tiled_kernel(
       const int t = i / 32, l = i % 32;
       const int py = blockIdx.y * kTileH + l / kTileW, pxx = blockIdx.x * kTileW + l % kTileW;
       if (py < ho && pxx < wo)
-        bwd_row<T>(fb + (long long)t * hwo + py * wo + pxx, lane, y0, y1, x0, x1, ly, lx,
-                   lf, ft, g, n, w, hw, c, 1, n, dly, dlx, dlf, dft);
+        bwd_row<float>(fb + (long long)t * hwo + py * wo + pxx, lane, y0, y1, x0, x1, ly,
+                       lx, lf, ft, g, n, w, hw, c, 1, n, dly, dlx, dlf, dft);
     }
     return;
   }
@@ -326,7 +349,7 @@ dconv_col_bwd_tiled_kernel(
     const int pc[4] = {base, base + dx[i], base + dy[i] * ww, base + dy[i] * ww + dx[i]};
     const float fy = tap_fy[t * 32 + lane], fx = tap_fx[t * 32 + lane];
     const float live = tap_live[t * 32 + lane];
-    const float4 s4 = scatter_weights<T>(fy, fx, live, dy[i] == 0, dx[i] == 0);
+    const float4 s4 = scatter_weights<float>(fy, fx, live, dy[i] == 0, dx[i] == 0);
     const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
     int rank = 0, turns = dx[i] << 24 | dy[i] << 25;
 #pragma unroll
@@ -352,7 +375,7 @@ dconv_col_bwd_tiled_kernel(
   float acc[kMaxTaps][3];  // this warp's part of the lanes' row sums
 #pragma unroll
   for (int t = 0; t < kMaxTaps; ++t) acc[t][0] = acc[t][1] = acc[t][2] = 0.f;
-  T* fw = reinterpret_cast<T*>(sm);        // [kMaxWindow][kPitch], in ft's type
+  float* fw = sm;                          // [kMaxWindow][kPitch]
   float* dw = sm + kMaxWindow * kPitch;    // [kMaxWindow][kPitch]
   const int k4 = 4 * warp;  // this warp's four channels of a chunk
   // chunk c0 of ft over the window into fw (channels past C: zeros, never
@@ -362,19 +385,12 @@ dconv_col_bwd_tiled_kernel(
     for (int i = tid; i < px * (kChunk / 4); i += kTiledWarps * 32) {
       const int p = i / (kChunk / 4), q4 = 4 * (i % (kChunk / 4));
       const int py = p / ww, pxx = p - py * ww;
-      T* dst = fw + p * kPitch + q4;
-      const T* src = ftb + (long long)((ymin + py) * w + xmin + pxx) * c + c0 + q4;
-      if constexpr (sizeof(T) == sizeof(float)) {
-        if (q4 < cn)
-          mx::cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src));
-        else
-          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-      } else {  // bf16: four channels in 8 bytes, converted as they are read
-        if (q4 < cn)
-          mx::cp_async8(dst, src);
-        else
-          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
-      }
+      float* dst = fw + p * kPitch + q4;
+      const float* src = ftb + (long long)((ymin + py) * w + xmin + pxx) * c + c0 + q4;
+      if (q4 < cn)
+        mx::cp_async16(dst, src);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     mx::cp_async_commit();
   };
@@ -392,15 +408,14 @@ dconv_col_bwd_tiled_kernel(
     float gv[4], gn[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      gv[j] = pos && mine4 ? mx::to_float(gb[(long long)(c0 + k4 + j) * n + row0]) : 0.f;
+      gv[j] = pos && mine4 ? gb[(long long)(c0 + k4 + j) * n + row0] : 0.f;
 #pragma unroll
     for (int t = 0; t < kMaxTaps; ++t) {
       if (t >= k2 || !mine4) break;  // uniform
 #pragma unroll
       for (int j = 0; j < 4; ++j)  // the next tap's g, in flight
         gn[j] = pos && t + 1 < k2
-                    ? mx::to_float(gb[(long long)(c0 + k4 + j) * n +
-                                      (long long)(t + 1) * hwo + row0])
+                    ? gb[(long long)(c0 + k4 + j) * n + (long long)(t + 1) * hwo + row0]
                     : 0.f;
       const float y = tap_fy[t * 32 + lane], x = tap_fx[t * 32 + lane];
       const float live = tap_live[t * 32 + lane];
@@ -433,7 +448,7 @@ dconv_col_bwd_tiled_kernel(
       acc[t][1] += (1.f - y) * (s01 - s00) + y * (s11 - s10);
       acc[t][2] += w00 * s00 + w01 * s01 + w10 * s10 + w11 * s11;
       const float4 g4 = make_float4(gv[0], gv[1], gv[2], gv[3]);  // 0 past the map
-      const float4 s4 = scatter_weights<T>(y, x, live, ddy == 0, ddx == 0);
+      const float4 s4 = scatter_weights<float>(y, x, live, ddy == 0, ddx == 0);
       const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -504,6 +519,495 @@ dconv_col_bwd_tiled_kernel(
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 instance (see the note at the top): one cooperative launch a call
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int kBfWarps = 16;              // warps of a block, one block an SM
+constexpr int kBfThreads = kBfWarps * 32;
+constexpr int kBfChunk = 128;             // channels of a pass: sixteen 8-wide n-tiles
+constexpr int kBfRows = kMaxTaps * 32;    // rows of a tile, (tap, lane)
+constexpr int kGPitch = 32 + 8;           // bf16 a channel of one tap's g slot
+constexpr int kAPitch = 32 + 8;           // bf16 a pixel of a tap's A tile
+constexpr int kFPitch = kBfChunk + 8;     // bf16 a pixel of the ft window
+constexpr int kWarpMTiles = kMaxWindow / 32;  // a warp's 16-pixel m-tiles
+static_assert(kMaxWindow % 32 == 0, "two warps share an n-tile pair's m-tiles");
+static_assert(kBfWarps == 16 && kBfChunk == 128,
+              "warp w: n-tiles 2 (w % 8) and 2 (w % 8) + 1, m-tiles w / 8 + 2 j, "
+              "row-sum channels 8 w .. 8 w + 7");
+static_assert(kBfChunk * kTileH == kBfThreads, "a thread a run of a tap's g slot");
+// The pitches (80 and 272 bytes) keep every ldmatrix row and 16-byte access
+// aligned, the eight rows of one 8 x 8 matrix on distinct banks, and eight
+// consecutive window pixels' 16-byte reads on distinct banks.
+// dynamic shared memory: three taps' g slots [kRing][kBfChunk][kGPitch], the
+// ft window [kMaxWindow][kFPitch], three A tiles [kRing][kMaxWindow][kAPitch],
+// all bf16;
+// then, fp32, the warps' row-sum parts of two taps [2][kBfWarps][3][32], the
+// row sums [kMaxTaps][3][32], and the rows' words [kBfWords][kBfRows]
+constexpr int kBfWords = 6;  // fy, fx, live, pixel (base | dx << 16 | dy << 17), w01, w23
+constexpr int kRing = 3;     // taps of g and of A in shared memory at once
+constexpr size_t kBfSmem =
+    sizeof(mx::bf16) *
+        (kRing * kBfChunk * kGPitch + kMaxWindow * kFPitch + kRing * kMaxWindow * kAPitch) +
+    sizeof(float) * (2 * kBfWarps * 3 * 32 + kMaxTaps * 3 * 32 + kBfWords * kBfRows);
+static_assert(kBfSmem <= mx::kSmemMax, "one block's shared memory");
+
+// a lane's row of one tap of a tile: its corners and factors
+struct BfRow {
+  int cy, cx, dy, dx;
+  float fy, fx, live;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The grid's first and last steps: zero the fp32 buffer, and round it to
+// d_ft (16-byte and 8-byte pieces where the pointers allow, then the rest)
+__device__ __forceinline__ void zero_buffer(float* acc, long long total, bool vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n4 = vec ? total / 4 : 0;
+  for (long long i = i0; i < n4; i += stride)
+    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long i = 4 * n4 + i0; i < total; i += stride) acc[i] = 0.f;
+}
+
+__device__ __forceinline__ void round_buffer(const float* acc, long long total, bool vec,
+                                             mx::bf16* dft) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n4 = vec ? total / 4 : 0;
+  for (long long i = i0; i < n4; i += stride)
+    reinterpret_cast<uint2*>(dft)[i] =
+        mx::float4_to_bf16x4(reinterpret_cast<const float4*>(acc)[i]);
+  for (long long i = 4 * n4 + i0; i < total; i += stride)
+    dft[i] = __float2bfloat16_rn(acc[i]);
+}
+
+// The tiled design in bf16 (channel-major g, rows laid out (tap, ho, wo) with
+// K2 <= kMaxTaps, C a multiple of 4): a persistent cooperative grid of
+// kBfThreads-thread blocks with kBfSmem bytes of dynamic shared memory, one
+// block an SM.  A tile takes its channels kBfChunk at a time (one pass at the
+// R-FCN calls), and in a pass its taps one after another, one block barrier
+// a tap: while every warp adds tap t's products into its part of d_window,
+// in registers, and its eight channels of tap t's row sums, 128 threads
+// reset tap t - 1's entries of A and 128 write tap t + 1's (three buffers),
+// the first 96 threads add tap t - 1's row-sum parts by a fixed tree, and
+// tap t + 2's g is in flight (one 16-byte cp.async a thread, three slots).
+// The block's first atomic waits for the grid to have zeroed the buffer (the
+// grid's sync sits there, so the zeroing overlaps the first tile's taps), and
+// the next tile's factors are loaded during the flush.  vec: acc 16-byte and
+// dft 8-byte aligned.
+__global__ void __launch_bounds__(kBfThreads, 1)
+dconv_col_bwd_bf16_tiled_kernel(
+    const int* __restrict__ y0, const int* __restrict__ y1,
+    const int* __restrict__ x0, const int* __restrict__ x1,
+    const float* __restrict__ ly, const float* __restrict__ lx,
+    const float* __restrict__ lf, const mx::bf16* __restrict__ ft,
+    const mx::bf16* __restrict__ g, int n, int w, int hw, int c, int k2, int ho, int wo,
+    int bgs, long long total, int vec, float* __restrict__ dly, float* __restrict__ dlx,
+    float* __restrict__ dlf, float* __restrict__ acc, mx::bf16* __restrict__ dft) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mx::bf16* gs = reinterpret_cast<mx::bf16*>(smem);  // [slot][channel][row of the tap]
+  mx::bf16* fw = gs + kRing * kBfChunk * kGPitch;     // [pixel][channel]
+  mx::bf16* as = fw + kMaxWindow * kFPitch;           // [slot][pixel][row of the tap]
+  float* part = reinterpret_cast<float*>(as + kRing * kMaxWindow * kAPitch);  // [2][warp][3][lane]
+  float* rs = part + 2 * kBfWarps * 3 * 32;           // [tap][3][lane]
+  float* tap_fy = rs + kMaxTaps * 3 * 32;             // [tap][lane], and so on
+  float* tap_fx = tap_fy + kBfRows;
+  float* tap_live = tap_fx + kBfRows;
+  int* tap_pix = reinterpret_cast<int*>(tap_live + kBfRows);
+  unsigned* tap_w01 = reinterpret_cast<unsigned*>(tap_pix + kBfRows);
+  unsigned* tap_w23 = tap_w01 + kBfRows;
+  __shared__ int win[4];  // min y0, min x0, max y1, max x1 over the tile
+  __shared__ int tap_lo[kMaxTaps], tap_hi[kMaxTaps];  // window pixels a tap's rows reach
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  cg::grid_group grid = cg::this_grid();
+
+  for (int i = tid; i < kRing * kMaxWindow * kAPitch / 8; i += kBfThreads)
+    reinterpret_cast<uint4*>(as)[i] = make_uint4(0u, 0u, 0u, 0u);  // A tiles start zero
+  zero_buffer(acc, total, vec);
+  bool zeroed = false;  // whether this block has passed the grid's sync after the zeroing
+  auto await_zeroed = [&]() {  // block-uniform
+    if (!zeroed) grid.sync();
+    zeroed = true;
+  };
+
+  const int tiles_x = (wo + kTileW - 1) / kTileW, tiles_y = (ho + kTileH - 1) / kTileH;
+  const int tiles = tiles_x * tiles_y * bgs;
+  const int hwo = ho * wo;
+  const int nt = 2 * (warp & 7), mh = warp >> 3;  // this warp's n-tiles and m-tile parity
+  const int k8 = 8 * warp;  // this warp's eight channels of a pass, for the row sums
+  // the ft window in 16-byte pieces of eight channels where C and ft allow
+  const bool vec8 = c % 8 == 0 && (reinterpret_cast<uintptr_t>(ft) & 15) == 0;
+  // warp t's lanes read tap t's rows of tile `tl`
+  auto load_rows = [&](int tl) {
+    BfRow q = {0, 0, 0, 0, 0.f, 0.f, 0.f};
+    const int qx = tl % tiles_x, qy = tl / tiles_x % tiles_y, qb = tl / (tiles_x * tiles_y);
+    const int oy = qy * kTileH + lane / kTileW, ox = qx * kTileW + lane % kTileW;
+    if (tl < tiles && warp < k2 && oy < ho && ox < wo) {
+      const long long r = (long long)qb * n + (long long)warp * hwo + oy * wo + ox;
+      q.cy = y0[r];
+      q.cx = x0[r];
+      q.dy = y1[r] - q.cy;  // 0 or 1
+      q.dx = x1[r] - q.cx;
+      q.fy = ly[r];
+      q.fx = lx[r];
+      q.live = lf[r];
+    }
+    return q;
+  };
+  BfRow next = load_rows(blockIdx.x);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int bx = tile % tiles_x, by = tile / tiles_x % tiles_y, bg = tile / (tiles_x * tiles_y);
+    const int oy = by * kTileH + lane / kTileW, ox = bx * kTileW + lane % kTileW;
+    const bool pos = oy < ho && ox < wo;
+    const long long fb = (long long)bg * n;
+    const mx::bf16* ftb = ft + (long long)bg * hw * c;
+    float* accb = acc + (long long)bg * hw * c;
+    const mx::bf16* gb = g + (long long)bg * c * n;
+    const BfRow rw = next;
+    const bool in = pos && warp < k2;
+
+    __syncthreads();  // the last tile is done with the shared words
+    if (tid == 0) win[0] = win[1] = INT_MAX, win[2] = win[3] = INT_MIN;
+    for (int i = tid; i < kMaxTaps * 3 * 32; i += kBfThreads) rs[i] = 0.f;
+    __syncthreads();
+    if (warp < kMaxTaps) {
+      // a lane past the map adds nothing and its sums are not written
+      tap_fy[warp * 32 + lane] = rw.fy;
+      tap_fx[warp * 32 + lane] = rw.fx;
+      tap_live[warp * 32 + lane] = rw.live;
+    }
+    {
+      const int ymin = __reduce_min_sync(0xffffffffu, in ? rw.cy : INT_MAX);
+      const int xmin = __reduce_min_sync(0xffffffffu, in ? rw.cx : INT_MAX);
+      const int ymax = __reduce_max_sync(0xffffffffu, in ? rw.cy + rw.dy : INT_MIN);
+      const int xmax = __reduce_max_sync(0xffffffffu, in ? rw.cx + rw.dx : INT_MIN);
+      if (lane == 0 && warp < k2) {
+        atomicMin(win + 0, ymin);
+        atomicMin(win + 1, xmin);
+        atomicMax(win + 2, ymax);
+        atomicMax(win + 3, xmax);
+      }
+    }
+    __syncthreads();
+    const int ymin = win[0], xmin = win[1];
+    const int ww = win[3] - xmin + 1, px = (win[2] - ymin + 1) * ww;
+    if (px > kMaxWindow) {  // the whole block takes the tile's rows one warp each
+      next = load_rows(tile + gridDim.x);
+      await_zeroed();
+      for (int i = warp; i < k2 * 32; i += kBfWarps) {
+        const int t = i / 32, l = i % 32;
+        const int py = by * kTileH + l / kTileW, pxx = bx * kTileW + l % kTileW;
+        if (py < ho && pxx < wo)
+          bwd_row<mx::bf16>(fb + (long long)t * hwo + py * wo + pxx, lane, y0, y1, x0, x1, ly,
+                            lx, lf, ft, g, n, w, hw, c, 1, n, dly, dlx, dlf, acc);
+      }
+      continue;  // block-uniform
+    }
+
+    // each row's base pixel in the window and its four merged bf16 weights
+    // (a lane past the map: 0), and each tap's reach
+    if (warp < k2) {  // warp-uniform
+      const int base = pos ? (rw.cy - ymin) * ww + (rw.cx - xmin) : 0;
+      const float4 s4 =
+          scatter_weights<mx::bf16>(rw.fy, rw.fx, rw.live, rw.dy == 0, rw.dx == 0);
+      tap_pix[warp * 32 + lane] = base | rw.dx << 16 | rw.dy << 17;
+      tap_w01[warp * 32 + lane] = pos ? pack_bf16x2(s4.x, s4.y) : 0u;  // exact: rounded already
+      tap_w23[warp * 32 + lane] = pos ? pack_bf16x2(s4.z, s4.w) : 0u;
+      const int lo = __reduce_min_sync(0xffffffffu, pos ? base : INT_MAX);
+      const int hi = __reduce_max_sync(0xffffffffu, pos ? base + rw.dy * ww + rw.dx : INT_MIN);
+      if (lane == 0) tap_lo[warp] = lo, tap_hi[warp] = hi;
+    }
+
+    // pass c0's channels of the ft window into shared memory (channels past
+    // C: zeros)
+    auto stage_window = [&](int c0) {
+      const int cn = min(kBfChunk, c - c0);
+      const int q = vec8 ? 8 : 4;  // channels a piece
+      const int pieces = kBfChunk / q;
+      for (int i = tid; i < px * pieces; i += kBfThreads) {
+        const int p = i / pieces, qc = q * (i - p * pieces);
+        const int py = p / ww, pxx = p - py * ww;
+        mx::bf16* dst = fw + p * kFPitch + qc;
+        const mx::bf16* src = ftb + (long long)((ymin + py) * w + xmin + pxx) * c + c0 + qc;
+        if (vec8) {
+          if (qc < cn)
+            mx::cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src));
+          else
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        } else {
+          if (qc < cn)
+            mx::cp_async8(dst, src);
+          else
+            *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+        }
+      }
+    };
+    // pass c0's channels of tap t's g (the tile's rows, channel-major) into
+    // slot t % kRing: thread (j, r) copies channel j's run of kTileW rows of
+    // tile row r; channels past C and positions past the map: zeros
+    auto stage_g = [&](int c0, int t) {
+      const int j = tid / kTileH, r = tid % kTileH;
+      mx::bf16* dst = gs + ((t % kRing) * kBfChunk + j) * kGPitch + r * kTileW;
+      const int gy = by * kTileH + r, gx = bx * kTileW;
+      const bool live = c0 + j < c && gy < ho;
+      const mx::bf16* src = gb + (long long)(c0 + j) * n + (long long)t * hwo + gy * wo + gx;
+      if (live && gx + kTileW <= wo && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        mx::cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src));
+      } else {
+#pragma unroll
+        for (int e = 0; e < kTileW; ++e)
+          dst[e] = live && gx + e < wo ? src[e] : __float2bfloat16_rn(0.f);
+      }
+    };
+    // the entry of tap t's row l at corner q in its A tile (slot t % kRing),
+    // by thread q * 32 + l of a group of 128: its merged weight, or a reset
+    // to 0.  A clamped corner's second weight is 0 and not written (its
+    // pixel keeps the first's), so no two writes of a tap meet.
+    auto put = [&](int t, int i, bool reset) {
+      const int l = i & 31, q = i >> 5;
+      const int pix = tap_pix[t * 32 + l];
+      const int base = pix & 0xffff, ddx = (pix >> 16) & 1, ddy = ((pix >> 17) & 1) * ww;
+      const int pc = base + (q & 1) * ddx + (q >> 1) * ddy;
+      const unsigned wpair = q < 2 ? tap_w01[t * 32 + l] : tap_w23[t * 32 + l];
+      const unsigned short wq = (unsigned short)(q & 1 ? wpair >> 16 : wpair & 0xffffu);
+      unsigned short* e =
+          reinterpret_cast<unsigned short*>(as + (t % kRing) * kMaxWindow * kAPitch) +
+          pc * kAPitch + l;
+      if (reset)
+        *e = 0;
+      else if (wq != 0)
+        *e = wq;
+    };
+    // tap t's row sums: the warps' parts (buffer t & 1) added by a fixed
+    // tree (pairs of warps, then pairs of pairs)
+    auto add_parts = [&](int t) {
+      if (tid < 3 * 32) {
+        const float* src = part + (t & 1) * kBfWarps * 3 * 32 + tid;
+        float v[kBfWarps];
+#pragma unroll
+        for (int i = 0; i < kBfWarps; ++i) v[i] = src[i * 3 * 32];
+#pragma unroll
+        for (int h = 1; h < kBfWarps; h *= 2)
+#pragma unroll
+          for (int i = 0; i < kBfWarps; i += 2 * h) v[i] += v[i + h];
+        rs[t * 3 * 32 + tid] += v[0];
+      }
+    };
+
+    float d[kWarpMTiles][2][4];  // d_window: this warp's m-tiles of its two n-tiles
+#pragma unroll
+    for (int j = 0; j < kWarpMTiles; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) d[j][h][0] = d[j][h][1] = d[j][h][2] = d[j][h][3] = 0.f;
+    __syncthreads();  // the rows' words and reaches are out
+    for (int c0 = 0; c0 < c; c0 += kBfChunk) {
+      const int cn = min(kBfChunk, c - c0);  // a multiple of 4
+      if (c0 > 0) __syncthreads();  // the last pass is done with A, g, ft and the parts
+      stage_window(c0);
+      stage_g(c0, 0);
+      mx::cp_async_commit();  // group: the window and tap 0's g
+      if (k2 > 1) stage_g(c0, 1);
+      mx::cp_async_commit();  // group: tap 1's g (empty where K2 == 1)
+      if (tid < 128) put(0, tid, false);
+#pragma unroll 1
+      for (int t = 0; t < k2; ++t) {
+        mx::cp_async_wait<1>();  // all but the last group: tap t's g is in
+        __syncthreads();  // tap t's g and A are in for all; tap t - 1 is done
+        if (t + 2 < k2) stage_g(c0, t + 2);  // in flight during taps t and t + 1
+        mx::cp_async_commit();  // (an empty group past the last tap)
+        if (t >= 1 && tid < 128) put(t - 1, tid, true);  // back to zero: slot (t + 2) % kRing
+        if (t + 1 < k2 && tid >= 128 && tid < 256) put(t + 1, tid - 128, false);
+        if (t >= 1) add_parts(t - 1);
+        const mx::bf16* gt = gs + (t % kRing) * kBfChunk * kGPitch;
+        const int lo = tap_lo[t], hi = tap_hi[t];
+        if (nt * 8 < cn) {  // warp-uniform
+          unsigned b0[4], b1[4];  // g_tap's channels of n-tiles nt, nt + 1 x 32 rows
+          ldmatrix_x4(b0, gt + (nt * 8 + (lane & 7)) * kGPitch + (lane >> 3) * 8);
+          ldmatrix_x4(b1, gt + (nt * 8 + 8 + (lane & 7)) * kGPitch + (lane >> 3) * 8);
+          const mx::bf16* at =
+              as + (t % kRing) * kMaxWindow * kAPitch + (lane & 15) * kAPitch + (lane >> 4) * 8;
+#pragma unroll
+          for (int j = 0; j < kWarpMTiles; ++j) {
+            const int m0 = (mh + 2 * j) * 16;
+            if (m0 > hi || m0 + 15 < lo) continue;  // uniform: no row of the tap reaches it
+            unsigned a0[4], a1[4];  // k-steps 0 and 1: rows 0-15 and 16-31 of the tap
+            ldmatrix_x4(a0, at + m0 * kAPitch);
+            ldmatrix_x4(a1, at + m0 * kAPitch + 16);
+            mma_bf16(d[j][0], a0, b0[0], b0[1]);
+            mma_bf16(d[j][1], a0, b1[0], b1[1]);
+            mma_bf16(d[j][0], a1, b0[2], b0[3]);
+            mma_bf16(d[j][1], a1, b1[2], b1[3]);
+          }
+        }
+        {  // the row sums over this warp's eight channels, as in the fp32 design
+          float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
+          const float y = tap_fy[t * 32 + lane], x = tap_fx[t * 32 + lane];
+          if (k8 < cn) {  // warp-uniform
+            const int pix = tap_pix[t * 32 + lane];
+            const int base = pix & 0xffff, ddx = (pix >> 16) & 1, ddy = ((pix >> 17) & 1) * ww;
+            const int pc[4] = {base, base + ddx, base + ddy, base + ddy + ddx};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // four channels at a time
+              float gv[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                gv[j] = __bfloat162float(gt[(k8 + 4 * h + j) * kGPitch + lane]);
+              const float4 fa = mx::lds4(fw + pc[0] * kFPitch + k8 + 4 * h);
+              const float4 fb4 = mx::lds4(fw + pc[1] * kFPitch + k8 + 4 * h);
+              const float4 fe = mx::lds4(fw + pc[2] * kFPitch + k8 + 4 * h);
+              const float4 ff = mx::lds4(fw + pc[3] * kFPitch + k8 + 4 * h);
+              const float f00[4] = {fa.x, fa.y, fa.z, fa.w}, f01[4] = {fb4.x, fb4.y, fb4.z, fb4.w};
+              const float f10[4] = {fe.x, fe.y, fe.z, fe.w}, f11[4] = {ff.x, ff.y, ff.z, ff.w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                s00 += gv[j] * f00[j];
+                s01 += gv[j] * f01[j];
+                s10 += gv[j] * f10[j];
+                s11 += gv[j] * f11[j];
+              }
+            }
+          }
+          const float w00 = (1.f - y) * (1.f - x);
+          const float w01 = (1.f - y) * x;
+          const float w10 = y * (1.f - x);
+          const float w11 = y * x;
+          // a clamped corner reads one value twice: s10 - s00 (s01 - s00) is 0
+          float* dst = part + ((t & 1) * kBfWarps + warp) * 3 * 32 + lane;
+          dst[0] = (1.f - x) * (s10 - s00) + x * (s11 - s01);
+          dst[32] = (1.f - y) * (s01 - s00) + y * (s11 - s10);
+          dst[64] = w00 * s00 + w01 * s01 + w10 * s10 + w11 * s11;
+        }
+      }
+      mx::cp_async_wait<0>();  // (only empty groups are left)
+      __syncthreads();  // every warp is done with the pass's last tap
+      add_parts(k2 - 1);
+      // the A tiles back to zero for the next pass or tile (the loop reset
+      // every tap before the last)
+      if (tid < 128) put(k2 - 1, tid, true);
+      if (c0 + kBfChunk >= c) next = load_rows(tile + gridDim.x);  // in flight during the flush
+      await_zeroed();
+      // the flush: lanes 2i and 2i + 1 swap halves, so that each holds four
+      // consecutive channels of one pixel, and add them with one 16-byte
+      // atomic where not all zero (neighbouring tiles' windows overlap)
+      if (nt * 8 < cn) {  // warp-uniform
+        const bool odd = lane & 1;
+#pragma unroll
+        for (int j = 0; j < kWarpMTiles; ++j) {
+          const int m0 = (mh + 2 * j) * 16;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* e = d[j][h];
+            if (m0 < px) {  // uniform
+              const float v0 = __shfl_xor_sync(0xffffffffu, odd ? e[0] : e[2], 1);
+              const float v1 = __shfl_xor_sync(0xffffffffu, odd ? e[1] : e[3], 1);
+              const float4 v = odd ? make_float4(v0, v1, e[2], e[3]) : make_float4(e[0], e[1], v0, v1);
+              const int p = m0 + (lane >> 2) + (odd ? 8 : 0);
+              const int ch = (nt + h) * 8 + 2 * (lane & 2);
+              if (p < px && ch < cn && (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)) {
+                const int py = p / ww, pxx = p - py * ww;
+                red_add4(accb + (long long)((ymin + py) * w + xmin + pxx) * c + c0 + ch, v);
+              }
+            }
+            e[0] = e[1] = e[2] = e[3] = 0.f;
+          }
+        }
+      }
+    }
+
+    // the row sums, from the taps' sums in shared memory
+    __syncthreads();
+    for (int i = tid; i < k2 * 32; i += kBfThreads) {
+      const int t = i / 32, l = i % 32;
+      const int py = by * kTileH + l / kTileW, pxx = bx * kTileW + l % kTileW;
+      if (py >= ho || pxx >= wo) continue;
+      const long long r = fb + (long long)t * hwo + py * wo + pxx;
+      const float lv = tap_live[t * 32 + l];
+      dly[r] = lv * rs[(t * 3 + 0) * 32 + l];
+      dlx[r] = lv * rs[(t * 3 + 1) * 32 + l];
+      dlf[r] = rs[(t * 3 + 2) * 32 + l];
+    }
+  }
+  await_zeroed();  // a block without tiles
+  grid.sync();
+  round_buffer(acc, total, vec, dft);
+}
+
+// Every other bf16 call: the row design (one warp a row, fp32 atomics into
+// the buffer) between the same zeroing and rounding, in one cooperative
+// launch of a persistent grid of kWarpsPerBlock * 32-thread blocks.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+dconv_col_bwd_bf16_rows_kernel(
+    const int* __restrict__ y0, const int* __restrict__ y1,
+    const int* __restrict__ x0, const int* __restrict__ x1,
+    const float* __restrict__ ly, const float* __restrict__ lx,
+    const float* __restrict__ lf, const mx::bf16* __restrict__ ft,
+    const mx::bf16* __restrict__ g, long long rows, int n, int w, int hw, int c,
+    long long g_row, long long g_chan, long long total, int vec, float* __restrict__ dly,
+    float* __restrict__ dlx, float* __restrict__ dlf, float* __restrict__ acc,
+    mx::bf16* __restrict__ dft) {
+  cg::grid_group grid = cg::this_grid();
+  zero_buffer(acc, total, vec);
+  grid.sync();
+  // a block's warps take consecutive rows, as dconv_col_bwd_kernel's do
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
+  for (long long r = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); r < rows;
+       r += stride)  // whole warps
+    bwd_row<mx::bf16>(r, threadIdx.x & 31, y0, y1, x0, x1, ly, lx, lf, ft, g, n, w, hw, c,
+                      g_row, g_chan, dly, dlx, dlf, acc);
+  grid.sync();
+  round_buffer(acc, total, vec, dft);
+}
+
+// A cooperative launch of `kernel` on a persistent grid: as many blocks as
+// can be resident at once (the occupancy query, never a constant), fewer
+// where the `items` need fewer.  Returns the launch's error: a grid the
+// card cannot hold at once is refused, never run.
+template <typename K>
+cudaError_t launch_cooperative(K kernel, int threads, size_t smem, long long items,
+                               void** params, cudaStream_t s) {
+  cudaError_t err = mx::allow_smem(kernel, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long long blocks = std::max(1LL, std::min(items, (long long)sms * per_sm));
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3((unsigned)blocks), dim3(threads), params, smem, s);
+}
+
 }  // namespace
 
 // y0..x1 (BG, N) i32; ly, lx, lf (BG, N) f32; ft (BG, H W, C) f32; g (BG, N, C)
@@ -540,15 +1044,15 @@ extern "C" int mx_dconv_col_bwd(const void* y0, const void* y1, const void* x0,
   const bool vec4 = c % 4 == 0 && (reinterpret_cast<uintptr_t>(ft) & 15) == 0 &&
                     (reinterpret_cast<uintptr_t>(dft) & 15) == 0;
   if (k2 > 0 && k2 <= kMaxTaps && g_row == 1 && (long long)k2 * ho * wo == n && vec4) {
-    err = mx::allow_smem(dconv_col_bwd_tiled_kernel<float>, kTiledSmem);
+    err = mx::allow_smem(dconv_col_bwd_tiled_kernel, kTiledSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((wo + kTileW - 1) / kTileW, (ho + kTileH - 1) / kTileH, bg);
-    dconv_col_bwd_tiled_kernel<float><<<grid, kTiledWarps * 32, kTiledSmem, s>>>(
+    dconv_col_bwd_tiled_kernel<<<grid, kTiledWarps * 32, kTiledSmem, s>>>(
         iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, n, w, h * w, c, k2, ho, wo, oy, ox,
         of, oft);
   } else {
     const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    dconv_col_bwd_kernel<float><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+    dconv_col_bwd_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
         iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, rows, n, w, h * w, c, g_row, g_chan,
         oy, ox, of, oft);
   }
@@ -556,9 +1060,11 @@ extern "C" int mx_dconv_col_bwd(const void* y0, const void* y1, const void* x0,
 }
 
 // The same with ft, g and dft bf16, and acc (BG, H W, C) f32, the buffer
-// d_ft is summed in (zeroed here, on the stream); the designs are chosen as
-// for fp32 (ft 8-byte aligned for the tiled one's 4-channel loads), then
-// d_ft is rounded once from acc.
+// d_ft is summed in before it is rounded to dft: one cooperative launch
+// (see the note at the top), whose error this returns.  Channel-major g
+// with a layout of at most kMaxTaps taps, C a multiple of 4, ft 8-byte and
+// acc 16-byte aligned takes the tiled design; every other call the row
+// design.
 extern "C" int mx_dconv_col_bwd_bf16(const void* y0, const void* y1, const void* x0,
                                      const void* x1, const void* ly, const void* lx,
                                      const void* lf, const void* ft, const void* g,
@@ -566,43 +1072,42 @@ extern "C" int mx_dconv_col_bwd_bf16(const void* y0, const void* y1, const void*
                                      int bg, int n, int h, int w, int c, int g_row,
                                      int g_chan, int k2, int ho, int wo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)bg * n;
-  const long long total = (long long)bg * h * w * c;
-  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)total * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* iy0 = static_cast<const int*>(y0);
-  const auto* iy1 = static_cast<const int*>(y1);
-  const auto* ix0 = static_cast<const int*>(x0);
-  const auto* ix1 = static_cast<const int*>(x1);
-  const auto* fly = static_cast<const float*>(ly);
-  const auto* flx = static_cast<const float*>(lx);
-  const auto* flf = static_cast<const float*>(lf);
-  const auto* fft = static_cast<const mx::bf16*>(ft);
-  const auto* fg = static_cast<const mx::bf16*>(g);
-  auto* oy = static_cast<float*>(dly);
-  auto* ox = static_cast<float*>(dlx);
-  auto* of = static_cast<float*>(dlf);
-  auto* oacc = static_cast<float*>(acc);
-  const bool vec4 = c % 4 == 0 && (reinterpret_cast<uintptr_t>(ft) & 7) == 0 &&
-                    (reinterpret_cast<uintptr_t>(acc) & 15) == 0;
-  if (k2 > 0 && k2 <= kMaxTaps && g_row == 1 && (long long)k2 * ho * wo == n && vec4) {
-    err = mx::allow_smem(dconv_col_bwd_tiled_kernel<mx::bf16>, kTiledSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((wo + kTileW - 1) / kTileW, (ho + kTileH - 1) / kTileH, bg);
-    dconv_col_bwd_tiled_kernel<mx::bf16><<<grid, kTiledWarps * 32, kTiledSmem, s>>>(
-        iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, n, w, h * w, c, k2, ho, wo, oy, ox, of,
-        oacc);
+  const int* iy0 = static_cast<const int*>(y0);
+  const int* iy1 = static_cast<const int*>(y1);
+  const int* ix0 = static_cast<const int*>(x0);
+  const int* ix1 = static_cast<const int*>(x1);
+  const float* fly = static_cast<const float*>(ly);
+  const float* flx = static_cast<const float*>(lx);
+  const float* flf = static_cast<const float*>(lf);
+  const mx::bf16* fft = static_cast<const mx::bf16*>(ft);
+  const mx::bf16* fg = static_cast<const mx::bf16*>(g);
+  float* oy = static_cast<float*>(dly);
+  float* ox = static_cast<float*>(dlx);
+  float* of = static_cast<float*>(dlf);
+  float* oacc = static_cast<float*>(acc);
+  mx::bf16* oft = static_cast<mx::bf16*>(dft);
+  int hw = h * w;
+  long long rows = (long long)bg * n, total = (long long)hw * bg * c;
+  // 16-byte pieces of the buffer and 8-byte ones of d_ft
+  int vec = (reinterpret_cast<uintptr_t>(acc) & 15) == 0 &&
+            (reinterpret_cast<uintptr_t>(dft) & 7) == 0;
+  const bool tiled = k2 > 0 && k2 <= kMaxTaps && g_row == 1 && (long long)k2 * ho * wo == n &&
+                     c % 4 == 0 && (reinterpret_cast<uintptr_t>(ft) & 7) == 0 &&
+                     (reinterpret_cast<uintptr_t>(acc) & 15) == 0;
+  cudaError_t err;
+  if (tiled) {
+    void* params[] = {&iy0, &iy1, &ix0, &ix1, &fly, &flx, &flf, &fft, &fg, &n, &w, &hw, &c,
+                      &k2, &ho, &wo, &bg, &total, &vec, &oy, &ox, &of, &oacc, &oft};
+    const long long tiles =
+        (long long)((wo + kTileW - 1) / kTileW) * ((ho + kTileH - 1) / kTileH) * bg;
+    err = launch_cooperative(dconv_col_bwd_bf16_tiled_kernel, kBfThreads, kBfSmem, tiles, params,
+                             s);
   } else {
-    const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    dconv_col_bwd_kernel<mx::bf16><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
-        iy0, iy1, ix0, ix1, fly, flx, flf, fft, fg, rows, n, w, h * w, c, g_row, g_chan, oy,
-        ox, of, oacc);
+    long long row_stride = g_row, chan_stride = g_chan;
+    void* params[] = {&iy0, &iy1, &ix0, &ix1, &fly, &flx, &flf, &fft, &fg, &rows, &n, &w, &hw,
+                      &c, &row_stride, &chan_stride, &total, &vec, &oy, &ox, &of, &oacc, &oft};
+    err = launch_cooperative(dconv_col_bwd_bf16_rows_kernel, kWarpsPerBlock * 32, 0,
+                             (rows + kWarpsPerBlock - 1) / kWarpsPerBlock, params, s);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kThreads = 256;
-  const long long rblocks = std::min<long long>((total + kThreads - 1) / kThreads, 1 << 16);
-  round_to_bf16_kernel<<<(unsigned)rblocks, kThreads, 0, s>>>(
-      static_cast<const float*>(acc), total, static_cast<mx::bf16*>(dft));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

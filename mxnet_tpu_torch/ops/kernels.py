@@ -369,7 +369,9 @@ def dconv_col_bwd_bf16(y0, y1, x0, x1, ly, lx, lf, ft, g, hw, layout=None):
     the TPU kernel's bf16 instance (``_dconv_bwd_kernel_factory``,
     ``_dconv_bwd``): dA = g·ftᵀ and the three row sums in fp32, written
     fp32; d_ft = bf16(A)ᵀ·g accumulated in fp32 over every row and rounded
-    once to bf16 at the end."""
+    once to bf16 at the end.  One cooperative kernel launch a call, which
+    zeroes, fills and rounds an fp32 buffer that the wrapper allocates; the
+    wrapper raises if the card refuses the launch."""
     shape = _dconv_bwd_check("dconv_col_bwd_bf16", y0, y1, x0, x1, ly, lx, lf,
                              ft, g, hw, layout)
     _require(ft.dtype == _BF16, "dconv_col_bwd_bf16: ft and g must be bfloat16")
@@ -406,8 +408,9 @@ def _dconv_col_bwd(name, entry, y0, y1, x0, x1, ly, lx, lf, ft, g, shape, layout
         z = torch.zeros((BG, N), dtype=torch.float32, device=dev)
         return z, z.clone(), z.clone(), torch.zeros_like(ft)
     rows = [torch.empty((BG, N), dtype=torch.float32, device=dev) for _ in range(3)]
-    d_ft = torch.empty_like(ft)  # zeroed by the entry, on the stream
-    # the bf16 instance sums d_ft in an fp32 buffer and rounds it at the end
+    d_ft = torch.empty_like(ft)  # fp32: zeroed by the entry, on the stream
+    # the bf16 instance sums d_ft in an fp32 buffer, which its kernel zeroes
+    # and rounds into d_ft
     acc = (torch.empty(ft.shape, dtype=torch.float32, device=dev)
            if ft.dtype == _BF16 else None)
     extra = () if acc is None else (acc.data_ptr(),)

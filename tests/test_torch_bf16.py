@@ -148,6 +148,54 @@ def test_dconv_col_bwd_bf16_plain_matches_pallas_vjp(via, g_layout):
     assert_within_ulp(got[3], ref[3], what="d_ft")
 
 
+def _dconv_path_inputs(rng, DG, H, W, C, px, k):
+    """Factors as deformable_convolution builds them (k x k taps at dilation
+    2, the output the map's size, rows laid out (tap, ho, wo)) for offsets
+    uniform in +-px pixels, with another tenth of the rows dead (lf = 0),
+    and a bf16 ft: the inputs of the card's bf16 designs at their edges."""
+    off = rng.uniform(-px, px, (1, 2 * DG * k * k, H, W)).astype(np.float32)
+    fac = [f.numpy() for f in tdet.dconv_sample_factors(
+        torch.from_numpy(off), (H, W), (k, k), (1, 1), (2, 2), (k - 1, k - 1))]
+    fac[6] = np.where(rng.rand(*fac[6].shape) < 0.1, 0, fac[6]).astype(np.float32)
+    return (*fac, _bf(rng.randn(DG, H * W, C))), (H, W)
+
+
+# (DG, H, W, C, offset px, taps): C = 4, 8 and 12 (a tensor-core n-tile of
+# the card's backward in part, whole, and one and a half); maps whose Ho, Wo
+# are no multiples of its 4 x 8 tile; +-3 px offsets (windows that overflow
+# its shared memory at full size); 25 taps (its row design)
+DCONV_EDGE_SHAPES = [(2, 5, 7, 4, 1.0, 3), (2, 5, 7, 8, 1.0, 3), (1, 6, 9, 12, 3.0, 3),
+                     (1, 5, 6, 8, 1.0, 5)]
+
+
+@pytest.mark.parametrize("shape", DCONV_EDGE_SHAPES)
+def test_dconv_bf16_plain_matches_pallas_at_the_card_designs_edges(shape):
+    """The card tests' oracle (the plain versions) against the Pallas
+    kernel and its VJP in interpret mode, on factors with dead rows and
+    clamped corners at the last row and column, and a channel-major g with
+    the rows' layout, as the backward's tiled design takes them."""
+    DG, H, W, C, px, k = shape
+    rng = np.random.RandomState(40 + C + k)
+    args, hw = _dconv_path_inputs(rng, DG, H, W, C, px, k)
+    y0, y1, x0, x1, _, _, lf = args[:7]
+    live = lf != 0
+    assert (~live).any() and (live & (y0 == H - 1) & (y1 == y0)).any()
+    assert (live & (x0 == W - 1) & (x1 == x0)).any()
+    N = y0.shape[1]
+    g = _bf(rng.randn(DG, N, C))
+    ja = _jax_dconv_args(args)
+    col, vjp = jax.vjp(lambda ly, lx, lf, ft: dconv_col_pallas(*ja[:4], ly, lx, lf, ft, hw,
+                                                               True), *ja[4:])
+    ref = vjp(_jb(g))
+    t = _torch_dconv_args(args)
+    assert_within_ulp(kernels.dconv_col(*t, hw), col, what="col")
+    gt = _tb(g).transpose(1, 2).contiguous().transpose(1, 2)  # channel-major
+    got = kernels.dconv_col_bwd(*t, gt, hw, (k * k, H, W))
+    for name, r, a in zip(("d_ly", "d_lx", "d_lf"), ref, got):
+        np.testing.assert_allclose(_np(a), _np(r), rtol=1e-5, atol=1e-5, err_msg=name)
+    assert_within_ulp(got[3], ref[3], what="d_ft")
+
+
 @pytest.mark.parametrize("shape", [(70, 16, 13, 21), (20, 1, 38, 64), (33, 16, 38, 61)])
 def test_psroi_abuild_bf16_plain_matches_pallas_interpret(shape):
     """yv, xv fp32, the sum over s fp32, only the store rounds to bf16."""

@@ -493,14 +493,21 @@ def _bf16_close(got, ref, atol=0.0, what=""):
     return n
 
 
-# (BG, N, H, W, C): the serve call at batch 1 and 2 (BG 4 and 8), BG 1, and
-# shapes that take the one-thread-per-output kernel (N, C not multiples of 4)
+# (BG, N, H, W, C): the serve call at batch 1 and 2 (BG 4 and 8); the 16-byte
+# design (C % 8 == 0, N % 8 == 0) with C = 8, 72 (part of a pass), 136 (a
+# second pass of one lane's channels) and 256, N = 504 (a last tile of 56
+# rows); the 8-byte design (N = 500, or C = 12); shapes that take the
+# one-thread-per-output kernel (N, C not multiples of 4)
 @pytest.mark.parametrize("shape", [(4, 21888, 38, 64, 128), (8, 21888, 38, 64, 128),
-                                   (1, 500, 19, 23, 128), (4, 501, 19, 23, 130),
-                                   (2, 22, 5, 6, 8)])
+                                   (2, 504, 19, 23, 8), (2, 504, 19, 23, 72),
+                                   (3, 1000, 19, 23, 136), (1, 504, 19, 23, 256),
+                                   (1, 500, 19, 23, 128), (2, 504, 19, 23, 12),
+                                   (4, 501, 19, 23, 130), (2, 22, 5, 6, 8)])
 def test_bf16_dconv_kernel_matches_plain(cuda, shape):
     """A rounded to bf16, the products summed in fp32 and rounded once: the
-    plain version sums the same exact products in cuBLAS's order."""
+    plain version sums the same exact products in cuBLAS's order.  Every
+    design gives the same bits: where a tiled one runs, a copy of ft one
+    element off 16-byte alignment takes the one-thread-per-output kernel."""
     BG, N, H, W, C = shape
     rng = np.random.RandomState(C + N + 1)
     t = _dconv_args(rng, BG, N, H, W, C, cuda)
@@ -511,6 +518,10 @@ def test_bf16_dconv_kernel_matches_plain(cuda, shape):
         before[0], before[1] + 1)
     assert got.dtype == BF and got.stride() == (C * N, 1, N)
     _bf16_close(got, kernels.dconv_col_plain(*t, (H, W)), what="dconv_col[bf16]")
+    if C % 4 == 0 and N % 4 == 0:
+        ft = torch.empty(t[7].numel() + 1, device=cuda, dtype=BF)[1:].view(t[7].shape)
+        assert ft.copy_(t[7]).data_ptr() % 16 != 0
+        assert torch.equal(kernels.dconv_col(*t[:7], ft, (H, W)), got)
 
 
 def _bf16_dconv_bwd_check(got, ref, t):
@@ -548,6 +559,80 @@ def test_bf16_dconv_bwd_kernel_matches_plain(cuda, shape, g_layout, with_layout)
     assert (kernels.dconv_col_bwd.launches, kernels.dconv_col_bwd_bf16.launches) == (
         before[0], before[1] + 1)
     _bf16_dconv_bwd_check(got, kernels.dconv_col_bwd_plain(*t, g, (H, W)), t)
+
+
+def _edged(t, rng, H, W):
+    """Path factors ``t`` with another tenth of the rows dead (lf = 0), on
+    any tap and position; their windows stay as they were.  The factors of
+    deformable_convolution already hold dead rows (samples off the map) and
+    live clamped corners at the last row and column (a sample in [H - 1, H)
+    has y1 == y0 = H - 1): the test asserts that they do."""
+    y0, y1, x0, x1, ly, lx, lf = t[:7]
+    dead = torch.from_numpy(rng.rand(*lf.shape) < 0.1).to(lf.device)
+    live = lf != 0
+    assert bool((live & (y0 == H - 1) & (y1 == y0)).any())
+    assert bool((live & (x0 == W - 1) & (x1 == x0)).any())
+    return [y0, y1, x0, x1, ly, lx, torch.where(dead, torch.zeros_like(lf), lf)] + list(t[7:])
+
+
+# (B, DG, H, W, C, offset px, taps): the edges of the bf16 backward's designs,
+# with dead rows and clamped corners at the last row and column: C = 4, 8 and
+# 12 (a chunk's first n-tile in part, or one and a half); Ho and Wo no
+# multiples of the 4 x 8 tile with C = 36 (a second chunk of one n-tile);
+# +-3 px offsets (some tiles' windows overflow shared memory) and +-20 px
+# (all of them); 25 taps (the row design); a res5 map at batch 1 with more
+# than one chunk and every edge
+@pytest.mark.parametrize("shape", [(1, 2, 9, 11, 4, 1.0, 3), (1, 2, 9, 11, 8, 1.0, 3),
+                                   (1, 2, 9, 11, 12, 1.0, 3), (2, 1, 10, 13, 36, 2.0, 3),
+                                   (1, 4, 38, 64, 128, 3.0, 3), (1, 4, 38, 64, 128, 20.0, 3),
+                                   (1, 1, 10, 13, 12, 1.0, 5), (1, 4, 38, 64, 128, 1.5, 3)])
+@pytest.mark.parametrize("g_layout", ["contiguous", "channel_major"])
+def test_bf16_dconv_bwd_kernel_edges_match_plain(cuda, shape, g_layout):
+    B, DG, H, W, C, px, k = shape
+    rng = np.random.RandomState(H + C + k)
+    t = _edged(_dconv_path_args(rng, B, DG, H, W, C, px, cuda, k=k), rng, H, W)
+    t[7] = t[7].to(BF)
+    N = t[0].shape[1]
+    g = torch.from_numpy(rng.randn(B * DG, C, N).astype(np.float32)).to(cuda).to(BF)
+    g = g.transpose(1, 2)
+    if g_layout == "contiguous":
+        g = g.contiguous()
+    got = kernels.dconv_col_bwd(*t, g, (H, W), (k * k, H, W))
+    _bf16_dconv_bwd_check(got, kernels.dconv_col_bwd_plain(*t, g, (H, W)), t)
+    again = kernels.dconv_col_bwd(*t, g, (H, W), (k * k, H, W))
+    # the row sums are fixed-order sums: the same bits on every call
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+
+
+def _device_ops(fn):
+    """The device operations (kernels, memsets, copies) of one ``fn()``,
+    from the profiler: {name: count}."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            ops[evt.key] = ops.get(evt.key, 0) + evt.count
+    return ops
+
+
+@pytest.mark.parametrize("design", ["tiled", "rows"])
+def test_bf16_dconv_bwd_is_one_device_op_a_call(cuda, design):
+    """Zeroing the fp32 buffer, the sums and the rounding to bf16 are one
+    cooperative kernel: no memset, no second kernel."""
+    rng = np.random.RandomState(8)
+    H, W, C = 38, 64, 128
+    t = _dconv_path_args(rng, 1, 4, H, W, C, 1.5, cuda)
+    t[7] = t[7].to(BF)
+    N = t[0].shape[1]
+    g = torch.from_numpy(rng.randn(4, C, N).astype(np.float32)).to(cuda).to(BF).transpose(1, 2)
+    layout = (9, H, W) if design == "tiled" else None
+    ops = _device_ops(lambda: kernels.dconv_col_bwd(*t, g, (H, W), layout))
+    assert len(ops) == 1 and list(ops.values()) == [1], ops
+    assert ("bf16_tiled" if design == "tiled" else "bf16_rows") in next(iter(ops))
 
 
 @pytest.mark.parametrize("shape", ABUILD_SHAPES + [(14700, 16, 38, 64)])

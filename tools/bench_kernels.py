@@ -3,13 +3,14 @@
 
     python3 tools/bench_kernels.py [--kernels a,b,...] [--against DIR ...]
     python3 tools/bench_kernels.py --dtype bfloat16 [--kernels a,b,...]
+    python3 tools/bench_kernels.py --batch 2 ...   # the path's calls at batch 2
 
 With ``--dtype bfloat16`` the rows are the bf16 instances of the dconv and
 A-build kernels (``dconv_col[bf16]`` and so on; NMS stays fp32) on the bf16
 path's calls: the forward calls of the model after ``cast("bfloat16")``,
 the backward calls of a ``compute_dtype="bfloat16"`` train step, and the
 A-build pair's seeded calls with A (and g) in bf16; bf16 outputs are
-compared within one bf16 ulp.  ``--against`` takes fp32 rows only.
+compared within one bf16 ulp (d_ft plus 1e-5 of its largest value).
 
 Kernels (``--kernels``, default all five):
 
@@ -32,7 +33,9 @@ Kernels (``--kernels``, default all five):
   window quantiles in pixels).
 
 Each row gives the kernel's device time (``chip_smoke.time_ms``), its bound,
-and a device copy of the same byte count.  With ``--against DIR`` (another
+a device copy of the same byte count, and the device operations (kernels,
+memsets) of one call, from the profiler, by name (``device_ops``; each
+``--against`` build's too).  With ``--against DIR`` (another
 revision's ``mxnet_tpu_torch/ops/csrc``, or a copy with one change, for a
 timing split; repeatable), every ``.cu`` file of ``DIR`` is built into a
 library of its own, and for each such build: the outputs of both builds are
@@ -41,7 +44,9 @@ tolerances; NMS must be equal; a timing copy that computes something else
 shows up as unequal and is only reported), and
 the two are timed in turns (other, this, this, other) in this one process.
 The C entries' signatures are those of ``DIR/../_build.py`` where that
-file exists (another revision's ``ops`` package), else this revision's.
+file exists (another revision's ``ops`` package), else this revision's; a
+bf16 dconv backward entry with one pointer more than the fp32 one gets an
+fp32 buffer for its d_ft sums.
 An older ``mx_dconv_col_bwd`` takes a prefix of this revision's integer
 arguments (BG, N, H, W, C; then g's row and channel strides; then the rows'
 layout K2, Ho, Wo); one without g's strides gets a contiguous copy of g,
@@ -82,6 +87,10 @@ ABUILD_TEST_SHAPES = ((300, 16, 38, 64), (7, 3, 5, 200), (20, 16, 800, 64),
 # other kernel or part of a pass (C 72, 130, 132; N 501), compared across builds
 DCONV_TEST_SHAPES = ((4, 500, 19, 23, 72), (4, 501, 19, 23, 128),
                      (4, 500, 19, 23, 130), (3, 500, 19, 23, 132))
+# and the bf16 forward's: its 16-byte design with C 8 and 136 (a second pass
+# in part), then N 500 (the 8-byte design) and 501 (one thread an output)
+DCONV_BF16_TEST_SHAPES = ((2, 504, 19, 23, 8), (3, 1000, 19, 23, 136),
+                          (2, 500, 19, 23, 128), (4, 501, 19, 23, 128))
 
 
 def say(obj):
@@ -128,6 +137,7 @@ class Other:
         self.label = Path(src).name
         self.dll = ctypes.CDLL(str(lib))
         sigs = signatures(Path(src).parent / "_build.py")
+        self.sigs = sigs
         # the integer arguments this build's mx_dconv_col_bwd takes (13
         # pointers before them, the stream after)
         self.dconv_ints = len(sigs["mx_dconv_col_bwd"]) - 14
@@ -141,22 +151,33 @@ class Other:
         self.masks = {}  # NMS mask scratch, one per shape, kept across calls
         self.contiguous = {}
 
+    def pointers(self, entry):
+        """The leading pointer arguments of C entry ``entry``."""
+        sig = self.sigs[entry]
+        return next((i for i, t in enumerate(sig) if t is not ctypes.c_void_p), len(sig))
+
     def call(self, name, args, kw):
+        """``name``'s kernel (a bf16 row, ``dconv_col[bf16]``, its bf16
+        entry) of this build on ``args``, its outputs allocated here."""
         stream = torch.cuda.current_stream().cuda_stream
         d = self.dll
+        bf16 = name.endswith("[bf16]")
+        entry = lambda base: getattr(d, "mx_" + base + ("_bf16" if bf16 else ""))
+        name = name.split("[")[0]
         if name == "psroi_abuild":
             yv, xv = args
             n, s, h = yv.shape
-            a = torch.empty((n, h, xv.shape[2]), device="cuda")
-            rc, outs = d.mx_psroi_abuild(yv.data_ptr(), xv.data_ptr(), a.data_ptr(),
-                                         n, s, h, xv.shape[2], stream), a
+            a = torch.empty((n, h, xv.shape[2]), device="cuda",
+                            dtype=torch.bfloat16 if bf16 else torch.float32)
+            rc, outs = entry(name)(yv.data_ptr(), xv.data_ptr(), a.data_ptr(),
+                                   n, s, h, xv.shape[2], stream), a
         elif name == "psroi_abuild_bwd":
             yv, xv, g = args
             n, s, h = yv.shape
             dyv, dxv = torch.empty_like(yv), torch.empty_like(xv)
-            rc = d.mx_psroi_abuild_bwd(yv.data_ptr(), xv.data_ptr(), g.data_ptr(),
-                                       dyv.data_ptr(), dxv.data_ptr(), n, s, h,
-                                       xv.shape[2], stream)
+            rc = entry(name)(yv.data_ptr(), xv.data_ptr(), g.data_ptr(),
+                             dyv.data_ptr(), dxv.data_ptr(), n, s, h,
+                             xv.shape[2], stream)
             outs = (dyv, dxv)
         elif name == "nms_alive":
             boxes, valid = args[:2]
@@ -178,12 +199,12 @@ class Other:
             BG, N = y0.shape
             C = ft.shape[2]
             if self.col_row_major:
-                outs, extra = torch.empty((BG, N, C), device="cuda"), []
+                outs, extra = torch.empty((BG, N, C), device="cuda", dtype=ft.dtype), []
             else:
-                outs = kernels._col_empty(BG, N, C, y0.device)
+                outs = kernels._col_empty(BG, N, C, y0.device, ft.dtype)
                 extra = [kernels._dconv_col_vec((*args[:8], outs), N, C)]
-            rc = d.mx_dconv_col(*(t.data_ptr() for t in args[:8]), outs.data_ptr(),
-                                BG, N, hw[0], hw[1], C, *extra, stream)
+            rc = entry(name)(*(t.data_ptr() for t in args[:8]), outs.data_ptr(),
+                             BG, N, hw[0], hw[1], C, *extra, stream)
         else:  # dconv_col_bwd
             y0, y1, x0, x1, ly, lx, lf, ft, g, hw = args[:10]
             layout = args[10] if len(args) > 10 else kw.get("layout")
@@ -193,6 +214,9 @@ class Other:
             dft = torch.empty_like(ft)
             ptrs = [t.data_ptr() for t in (y0, y1, x0, x1, ly, lx, lf, ft)]
             outp = [t.data_ptr() for t in rows + [dft]]
+            if bf16 and self.pointers("mx_dconv_col_bwd_bf16") == 14:
+                # that build sums d_ft in an fp32 buffer its caller allocates
+                outp.append(torch.empty(ft.shape, device="cuda").data_ptr())
             if self.dconv_ints < 7 and not g.is_contiguous():
                 # what the first signature's caller did, once per g (not timed)
                 if g.data_ptr() not in self.contiguous:
@@ -200,12 +224,26 @@ class Other:
                 g = self.contiguous[g.data_ptr()]
             ints = [BG, N, hw[0], hw[1], C, int(g.stride(1)), int(g.stride(2)),
                     *(layout or (0, 0, 0))]
-            rc = d.mx_dconv_col_bwd(*ptrs, g.data_ptr(), *outp, *ints[:self.dconv_ints],
-                                    stream)
+            rc = entry(name)(*ptrs, g.data_ptr(), *outp, *ints[:self.dconv_ints], stream)
             outs = (*rows, dft)
         if rc != 0:
             raise RuntimeError("%s (build %s): CUDA error %d" % (name, self.label, rc))
         return outs
+
+
+def device_ops(fn):
+    """The device operations (kernels, memsets, copies) of one ``fn()``, from
+    the profiler: {name: count}."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            ops[evt.key[:60]] = ops.get(evt.key[:60], 0) + evt.count
+    return ops
 
 
 def as_tuple(x):
@@ -247,9 +285,9 @@ def abuild_inputs(name, shape, seed, bf16=False):
     return t
 
 
-def dconv_inputs(shape, seed):
+def dconv_inputs(shape, seed, bf16=False):
     """Seeded dconv forward inputs with clamped corners and dead rows, as
-    the card tests make them."""
+    the card tests make them (ft in bf16 with ``bf16``)."""
     BG, N, H, W, C = shape
     rng = np.random.RandomState(seed)
     y0, x0 = rng.randint(0, H, (BG, N)), rng.randint(0, W, (BG, N))
@@ -257,16 +295,19 @@ def dconv_inputs(shape, seed):
     ints = [y0, np.minimum(y0 + 1, H - 1), x0, np.minimum(x0 + 1, W - 1)]
     flts = [rng.rand(BG, N), rng.rand(BG, N), rng.rand(BG, N) > 0.2,
             rng.randn(BG, H * W, C)]
-    return tuple([torch.from_numpy(a.astype(np.int32)).cuda() for a in ints]
-                 + [torch.from_numpy(a.astype(np.float32)).cuda() for a in flts]
-                 + [(H, W)])
+    t = ([torch.from_numpy(a.astype(np.int32)).cuda() for a in ints]
+         + [torch.from_numpy(a.astype(np.float32)).cuda() for a in flts])
+    if bf16:
+        t[7] = t[7].to(torch.bfloat16)
+    return tuple(t + [(H, W)])
 
 
-def path_calls(names, dev, config, bf16=False):
+def path_calls(names, dev, config, bf16=False, batch=1):
     """The calls of ``names`` (nms_alive, dconv_col, dconv_col_bwd, or their
     bf16 rows) on the R-FCN path of ``config`` (``chip_smoke.FULL``: the
-    full-width R-101), in bf16 the model cast to bf16 for the forward and
-    the bf16 train step for the backward: {name: [(label, args, kw), ...]}."""
+    full-width R-101) at ``batch`` images, in bf16 the model cast to bf16
+    for the forward and the bf16 train step for the backward:
+    {name: [(label, args, kw), ...]}."""
     import copy
 
     from mxnet_tpu_torch import train_fused
@@ -276,7 +317,7 @@ def path_calls(names, dev, config, bf16=False):
     net = DeformableRFCN(device=dev, generator=gen, **config)
     chip_smoke.randomize_deformable(net, gen)
     H, W = net.image_shape
-    data, info = chip_smoke.make_request(gen, [[H, W, 1.0]], (H, W), dev)
+    data, info = chip_smoke.make_request(gen, [[H, W, 1.0]] * batch, (H, W), dev)
     snet = copy.deepcopy(net).cast("bfloat16") if bf16 else net
     data = data.to(snet.rfcn_cls.weight.dtype)
     calls = {n: [] for n in names}
@@ -286,15 +327,16 @@ def path_calls(names, dev, config, bf16=False):
         calls[n] += [("serve", a, k) for a, k in lst[:1]]
     train = [n for n in names if n.split("[")[0] in ("nms_alive", "dconv_col_bwd")]
     if train:
-        step = train_fused.make_rfcn_train_step(net, 1, learning_rate=chip_smoke.LR,
+        step = train_fused.make_rfcn_train_step(net, batch, learning_rate=chip_smoke.LR,
                                                 momentum=0.9,
                                                 compute_dtype="bfloat16" if bf16 else None)
-        inputs = chip_smoke.train_inputs(net, np.random.RandomState(chip_smoke.SEED), 1,
+        inputs = chip_smoke.train_inputs(net, np.random.RandomState(chip_smoke.SEED), batch,
                                          dev)
         nz = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
         got = chip_smoke.capture_calls(
             kernels, train,
-            lambda: step(*inputs, *chip_smoke.train_noise(net, 1, nz, dev), chip_smoke.LR))
+            lambda: step(*inputs, *chip_smoke.train_noise(net, batch, nz, dev),
+                         chip_smoke.LR))
         for n, lst in got.items():
             calls[n] += [("train", tuple(a.detach() if torch.is_tensor(a) else a
                                          for a in args), kw) for args, kw in lst[:1]]
@@ -357,14 +399,15 @@ def main():
                     "(repeatable)")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                     help="bfloat16: the bf16 instances on the bf16 path's calls")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="images of the serve request and the train step whose "
+                    "calls are timed (the A-build pair's seeded calls stay)")
     opt = ap.parse_args()
     bf16 = opt.dtype == "bfloat16"
     names = [n for n in opt.kernels.split(",") if n]
     bad = [n for n in names if n not in ALL]
     if bad:
         sys.exit("bench_kernels: unknown kernels %s" % bad)
-    if bf16 and opt.against:
-        sys.exit("bench_kernels: --against compares fp32 rows only")
     if bf16:  # the bf16 rows; NMS has none
         names = [n + "[bf16]" for n in names if n != "nms_alive"]
     if not torch.cuda.is_available():
@@ -374,7 +417,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    say({"card": card, "torch": torch.__version__})
+    say({"card": card, "torch": torch.__version__, "batch": opt.batch})
     _build.library()
     say({"ptxas": [l.strip() for l in _build.build_info()["ptxas"].splitlines()
                    if "Compiling entry" in l or "Used" in l]})
@@ -388,7 +431,8 @@ def main():
     want = [n for n in names if n.split("[")[0] in ("nms_alive", "dconv_col", "dconv_col_bwd")]
     if want:
         calls.update(path_calls(want, torch.device("cuda"),
-                                dict(chip_smoke.FULL, units=(3, 4, 23, 3)), bf16))
+                                dict(chip_smoke.FULL, units=(3, 4, 23, 3)), bf16,
+                                opt.batch))
 
     for n in names:  # the builds against each other, on every call compared
         k = kernels.KERNELS[n]
@@ -400,6 +444,9 @@ def main():
                      if not (b == "psroi_abuild_bwd" and s[2] == 800)]
         elif n == "dconv_col":
             extra = [("test", dconv_inputs(s, i), {}) for i, s in enumerate(DCONV_TEST_SHAPES)]
+        elif n == "dconv_col[bf16]":
+            extra = [("test", dconv_inputs(s, i, bf16), {})
+                     for i, s in enumerate(DCONV_BF16_TEST_SHAPES)]
         for label, args, kw in calls[n] + extra:
             got = k.wrapper(*args, **kw)
             row = {"name": n, "call": label, **describe(b, args, kw, got)}
@@ -423,6 +470,7 @@ def main():
             row = {"name": n, "call": label, "bound_ms": bound_ms, "bound_by": by}
             this = lambda: k.wrapper(*args, **kw)
             row["ms"] = chip_smoke.time_ms(this, REPS)
+            row["device_ops"] = device_ops(this)
             for o in others:
                 timed = {"ms": lambda: o.call(n, args, kw)}
                 if n == "dconv_col" and o.col_row_major:
@@ -430,7 +478,7 @@ def main():
                     timed["layout_copy_ms"] = lambda: old.transpose(1, 2).contiguous()
                     timed["with_layout_copy_ms"] = (
                         lambda: o.call(n, args, kw).transpose(1, 2).contiguous())
-                row[o.label] = {}
+                row[o.label] = {"device_ops": device_ops(timed["ms"])}
                 for key, that in timed.items():
                     t = [chip_smoke.time_ms(f, REPS) for f in (that, this, this, that)]
                     pre = "" if key == "ms" else key + "_"

@@ -44,8 +44,8 @@ ITERS = 5
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("nms_alive", ("nms_mask_kernel", "nms_scan_kernel")),
-    ("dconv_col_bwd", ("dconv_col_bwd_", "round_to_bf16")),
-    ("dconv_col", ("dconv_col_tiled_kernel", "dconv_col_kernel")),
+    ("dconv_col_bwd", ("dconv_col_bwd_",)),
+    ("dconv_col", ("dconv_col_tiled_", "dconv_col_kernel")),
     ("psroi_abuild_bwd", ("psroi_abuild_bwd_",)),
     ("psroi_abuild", ("psroi_abuild_kernel",)),
     ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "winograd", "implicit")),
