@@ -35,13 +35,25 @@ Phases, in order; any failure exits non-zero:
    agreement with fp32; the calls of one batch-32 forward, and an odd-sized
    tensor with +-0, NaN and a zero range, hold the int8 pair bit for bit
    against the plain versions;
-7. small input: the tiny configuration on the card against the same model on
+7. resnet: the Gluon ResNet-50 v1 train step of bench.py's second headline
+   (``MXNET_BENCH=resnet50``: ``resnet50_v1(classes=1000)``, 224x224,
+   ``make_train_step`` with softmax cross-entropy, SGD lr 0.05 momentum
+   0.9), seeded U(-0.07, 0.07) weights, N(0, 1) images and float labels
+   < 1000 at batch 32: one warm-up and 5 timed steps in fp32 (TF32 off) and
+   in bf16 (``compute_dtype="bfloat16"``), each with its step ms, img/s,
+   peak memory and one profiled step (kernels, device busy, idle share,
+   largest groups); every loss finite, every running statistic moved, the
+   bf16 masters fp32, no ported kernel launched; then the first step at
+   batch 2 on the card against the CPU from the same weights (loss, two
+   weights' updates, a running variance);
+8. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
-   with the same weights and the same noise; the same stages in bf16; and
-   the CIFAR ResNet-8 int8 symbol with the same weights and calibration
-   table on both devices.
+   with the same weights and the same noise, with frozen BatchNorm and with
+   batch statistics (``frozen_bn=False``); one step of the narrow ResNet V1
+   in fp32 and bf16; the R-FCN stages in bf16; and the CIFAR ResNet-8 int8
+   symbol with the same weights and calibration table on both devices.
 
-Between 4 and 5 the bf16 path runs at the same full width: serve (the model
+Between 4 and 5 the bf16 R-FCN path runs at the same full width: serve (the model
 with its own seeded weights, ``cast("bfloat16")``, three single-image
 requests and one batch of two; rois fp32, cls_prob and bbox_pred bf16) and
 train (``compute_dtype="bfloat16"`` on the fp32 model of phase 4: fp32
@@ -82,6 +94,21 @@ INT8 = dict(num_classes=1000, num_layers=50, image_shape="3,224,224")
 INT8_CALIB = (4, 8)          # batches x images of naive calibration
 INT8_BATCHES = (1, 32)
 INT8_PAIR = ("quantize_int8", "dequantize_int8")
+# bench.py MXNET_BENCH=resnet50: resnet50_v1(classes=1000) at 224x224,
+# make_train_step(SoftmaxCrossEntropyLoss(), learning_rate=0.05,
+# momentum=0.9), images N(0, 1) and labels < 1000 stored as float; batch 32
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 32, 224, 1000
+RESNET_LR, RESNET_MOMENTUM = 0.05, 0.9
+RESNET_TIMED = 5
+# running statistics the small train phases compare (a res2 and a res5
+# BatchNorm); the batch-statistics phase's seed and RPN score weights' gain:
+# at these its CPU run's 201 best proposal scores of each image lie at least
+# 7.4e-5 apart (a gain of 4 saturates scores behind batch statistics)
+SMALL_TRAIN_BN_STATS = ("res2_unit1_batchnorm2_running_var",
+                        "res5_unit1_batchnorm1_running_var")
+SMALL_TRAIN_BN_SEED, SMALL_TRAIN_BN_RPN_GAIN = SEED + 17, 2.0
+# the narrow ResNet of tests/test_torch_resnet.py
+NARROW = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128], classes=10)
 
 
 def fail(msg):
@@ -791,26 +818,31 @@ def phase_small_input(dev):
         "(%s)" % ", ".join(n for n, *_ in stages))
 
 
-def phase_small_train(dev):
+def phase_small_train(dev, frozen_bn=True):
     """Tiny configuration, one train step at batch 2 on the card (kernels)
     against the same step on the CPU (plain versions): the same weights, the
     same synthetic batch and the same noise.  The RPN score conv gets larger
     weights, so that the proposal scores spread out and the sort has no
-    near-tie that the two devices' rounding could flip at this seed."""
+    near-tie that the two devices' rounding could flip at this seed.  With
+    ``frozen_bn=False`` every trunk BatchNorm normalises with the batch's
+    statistics, and a res2 and a res5 running variance are compared too."""
     from mxnet_tpu_torch import train_fused
     from mxnet_tpu_torch.gluon.model_zoo import DeformableConv2D, DeformableRFCN
 
-    # at this seed the CPU's sorted proposal scores lie at least 1.6e-5
-    # apart, far above the devices' rounding differences
-    gen = torch.Generator().manual_seed(SEED + 7)
-    cpu = DeformableRFCN(device="cpu", generator=gen, **TINY)
+    # at these seeds the CPU's sorted proposal scores lie at least 1.6e-5
+    # (frozen) and 7.4e-5 (batch statistics) apart, far above the devices'
+    # rounding differences
+    seed, gain = (SEED + 7, 4.0) if frozen_bn else (SMALL_TRAIN_BN_SEED,
+                                                    SMALL_TRAIN_BN_RPN_GAIN)
+    gen = torch.Generator().manual_seed(seed)
+    cpu = DeformableRFCN(device="cpu", generator=gen, frozen_bn=frozen_bn, **TINY)
     randomize_deformable(cpu, gen)
     with torch.no_grad():
         w = cpu.rpn_cls.weight
-        w.copy_(torch.randn(w.shape, generator=gen) * 4.0 / math.sqrt(w[0].numel()))
-    gpu = DeformableRFCN(device="cuda", **TINY)
+        w.copy_(torch.randn(w.shape, generator=gen) * gain / math.sqrt(w[0].numel()))
+    gpu = DeformableRFCN(device=dev, frozen_bn=frozen_bn, **TINY)
     gpu.load_state_dict(cpu.state_dict())
-    rng = np.random.RandomState(SEED + 7)
+    rng = np.random.RandomState(seed)
     batch = train_fused.synthetic_coco(rng, 2, cpu.image_shape, cpu.classes,
                                        cpu.max_gts)
     noise = [torch.rand(s, generator=gen) for s in train_fused.noise_shapes(cpu, 2)]
@@ -822,22 +854,226 @@ def phase_small_train(dev):
         probes = {"offset": next(m.offset.weight for m in net.modules()
                                  if isinstance(m, DeformableConv2D)),
                   "rfcn_trans": net.rfcn_trans.weight}
-        results.append((parts.cpu(), {k: p.grad.cpu() for k, p in probes.items()}))
-    (ref_parts, ref_grads), (got_parts, got_grads) = results
+        named = net.gluon_named_tensors()
+        results.append((parts.cpu(), {k: p.grad.cpu() for k, p in probes.items()},
+                        {k: named[k].cpu() for k in SMALL_TRAIN_BN_STATS}))
+    (ref_parts, ref_grads, ref_stats), (got_parts, got_grads, got_stats) = results
+    what = "train" if frozen_bn else "train, batch statistics"
     # four fp32 means over the same selection, summed in another order
     torch.testing.assert_close(got_parts, ref_parts, rtol=1e-4, atol=1e-5,
-                               msg=lambda m: "train loss parts: %s" % m)
+                               msg=lambda m: "%s loss parts: %s" % (what, m))
     for k, ref in ref_grads.items():
         if not float(ref.abs().max()) > 0:
-            fail("small train: %s got no gradient on the CPU" % k)
+            fail("small %s: %s got no gradient on the CPU" % (what, k))
         # cuDNN and CPU fp32 backward sums in another order through every
         # layer, the atomics of d_ft among them
         torch.testing.assert_close(got_grads[k], ref, rtol=1e-3,
                                    atol=1e-4 * float(ref.abs().max()),
                                    msg=lambda m, k=k: "%s gradient: %s" % (k, m))
-    say("small input, train: one step on the card agrees with the CPU (loss "
-        "parts %s, offset-conv and rfcn_trans weight gradients)"
-        % ", ".join("%.5f" % v for v in got_parts.tolist()))
+    for k, ref in ref_stats.items():
+        moved = not bool((ref == 1).all())
+        if moved == frozen_bn:
+            fail("small %s: %s %s" % (what, k, "moved" if moved else "did not move"))
+        # fp32 statistics of the same activations, in another order
+        torch.testing.assert_close(got_stats[k], ref, rtol=1e-4, atol=1e-6,
+                                   msg=lambda m, k=k: "%s %s: %s" % (what, k, m))
+    say("small input, %s: one step on the card agrees with the CPU (loss parts %s, "
+        "offset-conv and rfcn_trans weight gradients, %s)"
+        % (what, ", ".join("%.5f" % v for v in got_parts.tolist()),
+           ", ".join(SMALL_TRAIN_BN_STATS)))
+
+
+def resnet_step(net, compute_dtype=None):
+    """``make_train_step`` of ``net`` with the bench's loss and SGD."""
+    from mxnet_tpu_torch.gluon.functional import make_train_step
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    return make_train_step(net, SoftmaxCrossEntropyLoss(), learning_rate=RESNET_LR,
+                           momentum=RESNET_MOMENTUM, compute_dtype=compute_dtype)
+
+
+def resnet_batch(batch, image, classes, seed, dev):
+    """bench.py's inputs: N(0, 1) images and integer labels stored as float,
+    from ``numpy.random.RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, 3, image, image).astype(np.float32)
+    y = rng.randint(0, classes, (batch,)).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def check_resnet_state(state, names, aux_idx, what):
+    """Every tensor of the state fp32 and finite, and every running mean and
+    variance moved from its start (0 and 1)."""
+    learn, mom, aux = state
+    for t in learn + mom + aux:
+        if t.dtype != torch.float32 or not bool(torch.isfinite(t).all()):
+            fail("%s: a state tensor is %s or not finite" % (what, t.dtype))
+    for i, t in zip(aux_idx, aux):
+        start = 1.0 if names[i].endswith("running_var") else 0.0
+        if names[i].endswith(("running_mean", "running_var")) and bool((t == start).all()):
+            fail("%s: %s did not move" % (what, names[i]))
+
+
+def phase_resnet_train(kernels, dev, card):
+    """The Gluon ResNet-50 v1 train step of bench.py's second headline at
+    full width (1000 classes, 224x224, batch 32, SGD lr 0.05 momentum 0.9),
+    fp32 and bf16: one warm-up step, RESNET_TIMED timed steps (host clock,
+    each ended by a synchronize), one profiled step; every loss finite, every
+    running statistic moved, masters fp32.  The path reaches no TPU kernel's
+    port: every count must stay 0.  Returns the counts."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    x, y = resnet_batch(RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES, SEED, dev)
+    results = {}
+    kernels.reset_launches()
+    for dtype in (None, "bfloat16"):
+        label = dtype or "float32"
+        net = resnet50_v1(classes=RESNET_CLASSES, device=dev,
+                          generator=torch.Generator().manual_seed(SEED))
+        step, state, (names, learn_idx, aux_idx) = resnet_step(net, dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        times, losses = [], [float(loss)]
+        for _ in range(RESNET_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, x, y)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(math.isfinite(v) for v in losses):
+            fail("resnet50 %s: losses %s" % (label, losses))
+        check_resnet_state(state, names, aux_idx, "resnet50 " + label)
+        prof = device_profile(lambda: step(state, x, y), reps=1, top=6)
+        ms = statistics.median(times)
+        results[label] = dict(step_ms=ms, img_per_s=RESNET_BATCH / ms * 1e3, steps_ms=times,
+                              first_step_s=first_s, losses=losses, peak_gib=peak,
+                              profile=prof)
+        say("resnet50 train %s on %s: batch %d, first step %.2f s, median %.2f ms/step "
+            "(%s), %.1f img/s, peak memory %.2f GiB, losses %s; %s kernels a step, "
+            "device busy %s ms, idle share %s" % (
+                label, card, RESNET_BATCH, first_s, ms, ", ".join("%.2f" % t for t in times),
+                RESNET_BATCH / ms * 1e3, peak, ", ".join("%.4f" % v for v in losses),
+                prof.get("kernels_per_call"), prof.get("device_busy_ms"),
+                prof.get("idle_share")))
+        del net, step, state
+        torch.cuda.empty_cache()
+    launches = counts(kernels)
+    if any(launches.values()):
+        fail("the resnet50 train path launched %s" % launches)
+    say("resnet50 train: %s" % json.dumps(results))
+    say("resnet50 train launches (fp32 and bf16, %d steps each): %s"
+        % (RESNET_TIMED + 2, json.dumps(launches)))
+    return launches
+
+
+def resnet_state_of(state, names, learn_idx, aux_idx):
+    """{Gluon name: tensor on the CPU} of a train step's learnables and
+    auxiliary state."""
+    learn, _, aux = state
+    # a copy: the step updates the state's tensors in place
+    out = {names[i]: t.detach().cpu().clone() for i, t in zip(learn_idx, learn)}
+    out.update({names[i]: t.detach().cpu().clone() for i, t in zip(aux_idx, aux)})
+    return out
+
+
+def phase_resnet_card_vs_cpu(dev):
+    """The first ResNet-50 v1 step at full width (1000 classes, 224x224) and
+    batch 2, fp32, on the card and on the CPU from the same weights and
+    inputs: the loss, three weights' updates and a running variance."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    cpu = torch.device("cpu")
+    x, y = resnet_batch(2, RESNET_IMAGE, RESNET_CLASSES, SEED + 31, cpu)
+    out = []
+    for d in (cpu, dev):
+        net = resnet50_v1(classes=RESNET_CLASSES, device=d,
+                          generator=torch.Generator().manual_seed(SEED + 31))
+        step, state, meta = resnet_step(net)
+        before = resnet_state_of(state, *meta)
+        state, loss = step(state, x.to(d), y.to(d))
+        out.append((float(loss), before, resnet_state_of(state, *meta)))
+    (ref_loss, ref0, ref1), (got_loss, got0, got1) = out
+    # one fp32 forward through 53 BatchNorms at batch 2, sums in another order
+    if not math.isclose(got_loss, ref_loss, rel_tol=1e-4):
+        fail("resnet50 card vs CPU: loss %.6f against %.6f" % (got_loss, ref_loss))
+    for name in ("conv2d0_weight", "stage3_conv2d4_weight", "dense0_weight"):
+        if not torch.equal(got0[name], ref0[name]):
+            fail("resnet50 card vs CPU: %s starts apart" % name)
+        upd, ref_upd = got1[name] - got0[name], ref1[name] - ref0[name]
+        scale = float(ref_upd.abs().max())
+        if name.startswith("dense0"):
+            # the update is lr x the gradient; the output layer's has no
+            # BatchNorm behind it: fp32 sums in another order
+            torch.testing.assert_close(upd, ref_upd, rtol=1e-3, atol=1e-3 * scale,
+                                       msg=lambda m, n=name: "resnet50 %s update: %s" % (n, m))
+            continue
+        # behind a BatchNorm at batch 2 the gradient is a difference of
+        # nearly equal terms, which fp32 rounds at the percent level on any
+        # device (the CPU's fp32 against its own fp64 too): the two devices'
+        # updates agree in direction and within a tenth of the largest
+        cos = float((upd * ref_upd).sum() / (upd.norm() * ref_upd.norm()))
+        err = float((upd - ref_upd).abs().max())
+        if not (cos > 0.999 and err <= 0.1 * scale):
+            fail("resnet50 card vs CPU: %s update cosine %.6f, max error %.3g of %.3g"
+                 % (name, cos, err, scale))
+    name = "stage2_batchnorm1_running_var"
+    torch.testing.assert_close(got1[name], ref1[name], rtol=1e-4, atol=1e-6,
+                               msg=lambda m: "resnet50 %s: %s" % (name, m))
+    say("resnet50 card vs CPU (batch 2, fp32): loss %.6f / %.6f; dense0's update, the "
+        "directions of conv2d0's and stage3_conv2d4's, and %s agree" % (got_loss, ref_loss, name))
+
+
+def phase_small_resnet(dev):
+    """The narrow ResNet V1 of the CPU tests (64x64, batch 4): one step on
+    the card against one on the CPU from the same weights, fp32 and bf16."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
+
+    cpu = torch.device("cpu")
+    x, y = resnet_batch(4, 64, NARROW["classes"], SEED + 33, cpu)
+    for dtype in (None, "bfloat16"):
+        out = []
+        for d in (cpu, dev):
+            net = ResNetV1(BottleneckV1, device=d,
+                           generator=torch.Generator().manual_seed(SEED + 33), **NARROW)
+            step, state, meta = resnet_step(net, dtype)
+            state, loss = step(state, x.to(d), y.to(d))
+            names, learn_idx, _ = meta
+            # the first step's momentum is its gradient
+            moms = {names[i]: m.cpu().clone() for i, m in zip(learn_idx, state[1])}
+            out.append((float(loss), resnet_state_of(state, *meta), moms))
+        (ref_loss, ref, ref_m), (got_loss, got, got_m) = out
+        bf16 = dtype is not None
+        # fp32: sums in another order; bf16: each device rounds its bf16
+        # convolutions and products at other places
+        if not math.isclose(got_loss, ref_loss, rel_tol=3e-2 if bf16 else 1e-5):
+            fail("small resnet %s: loss %.6f against %.6f" % (dtype, got_loss, ref_loss))
+        for name, t in ref.items():
+            if name.endswith(("running_mean", "running_var")):
+                tol = 5e-2 if bf16 else 1e-5
+                torch.testing.assert_close(got[name], t, rtol=tol,
+                                           atol=tol * float(t.abs().max()),
+                                           msg=lambda m, n=name: "small resnet %s: %s" % (n, m))
+        for name in ("dense0_weight", "stage2_conv2d1_weight"):
+            a, b = got_m[name], ref_m[name]
+            if bf16 and not name.startswith("dense0"):
+                # behind a BatchNorm a bf16 gradient is a difference of
+                # nearly equal terms rounded at other places: its direction
+                cos = float((a * b).sum() / (a.norm() * b.norm()))
+                if not cos > 0.9:
+                    fail("small resnet bf16: %s gradient cosine %.3f" % (name, cos))
+                continue
+            tol = 0.1 if bf16 else 1e-3
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol * float(b.abs().max()),
+                                       msg=lambda m, n=name: "small resnet %s: %s" % (n, m))
+        say("small input, resnet %s: one step on the card agrees with the CPU (loss %.5f "
+            "/ %.5f, running statistics, dense0 and stage2 gradients)"
+            % (dtype or "float32", got_loss, ref_loss))
 
 
 def resnet_params(net, data_shape, gen, dev):
@@ -900,26 +1136,30 @@ def timed_forward(exe, data, reps=7):
 PROFILE_GROUPS = (  # first match wins, on the lower-cased kernel name
     ("dequantize_int8", ("dequantize_int8_kernel",)),
     ("quantize_int8", ("quantize_int8_kernel",)),
-    ("conv", ("fprop", "conv", "implicit")),
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "cudnn")),
     ("gemm", ("gemm", "cublas", "cutlass")),
+    ("reduce", ("reduce_kernel",)),
+    ("multi_tensor", ("multi_tensor_apply",)),
+    ("elementwise", ("elementwise_kernel",)),
 )
 
 
-def device_profile(exe, data, reps=3):
-    """Where a forward's device time goes: device busy ms and kernels per
-    forward, by group (the int8 pair, cuDNN convolutions, matrix products,
-    the rest: elementwise work, copies, reductions), from
-    ``torch.profiler``'s CUDA activity over ``reps`` forwards; the idle
-    share is 1 - busy / the traced wall.  "not measured" when the profiler
-    records no device time."""
+def device_profile(run, reps=3, top=0):
+    """Where a forward's or a step's device time goes: device busy ms and
+    kernels per ``run()``, by group (the int8 pair, cuDNN convolutions,
+    matrix products, reductions, multi-tensor updates, elementwise kernels,
+    the rest: copies and others), and with ``top`` the ``top`` kernels by
+    device time, from ``torch.profiler``'s CUDA activity over ``reps``
+    calls; the idle share is 1 - busy / the traced wall.  "not measured"
+    when the profiler records no device time."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            exe.forward(data=data)
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    groups, launches = {}, 0
+    groups, launches, kernels = {}, 0, []
     for evt in prof.key_averages():
         us = float(getattr(evt, "self_device_time_total", 0) or 0)
         if us <= 0 or evt.device_type == torch.autograd.DeviceType.CPU:
@@ -929,11 +1169,15 @@ def device_profile(exe, data, reps=3):
                      "other")
         groups[group] = groups.get(group, 0.0) + us / reps / 1e3
         launches += evt.count / reps
+        kernels.append((us / reps / 1e3, evt.count / reps, evt.key[:120]))
     busy = sum(groups.values())
     if not busy:
         return {"device_busy_ms": "not measured"}
-    return {"traced_wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
-            "kernels_per_forward": launches, "device_ms_by_group": groups}
+    out = {"traced_wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+           "kernels_per_call": launches, "device_ms_by_group": groups}
+    if top:
+        out["top_kernels_ms_count_name"] = sorted(kernels, reverse=True)[:top]
+    return out
 
 
 def phase_int8(kernels, dev, card):
@@ -1013,8 +1257,8 @@ def phase_int8(kernels, dev, card):
         q_ms, q_all = timed_forward(qexe, data)
         f_ms, f_all = timed_forward(fexe, data)
         latencies[batch] = dict(int8_ms=q_ms, fp32_ms=f_ms, top1_agreement=agree,
-                                int8_profile=device_profile(qexe, data),
-                                fp32_profile=device_profile(fexe, data))
+                                int8_profile=device_profile(lambda: qexe.forward(data=data)),
+                                fp32_profile=device_profile(lambda: fexe.forward(data=data)))
         say("int8 request: batch %d, int8 %.2f ms (%s), fp32 %.2f ms (%s) on %s; "
             "top-1 int8 = fp32 on %.3f of the images; no host sync in the int8 "
             "forward; launches %s" % (
@@ -1112,9 +1356,11 @@ def main():
     net_bf16, serve_bf16_launches = phase_serve_bf16(kernels, dev)
     train_bf16_launches, bwd_captured_bf16 = phase_train_bf16(kernels, net, dev, name)
     int8_launches, int8_captured, int8_expect = phase_int8(kernels, dev, name)
+    resnet_launches = phase_resnet_train(kernels, dev, name)
+    phase_resnet_card_vs_cpu(dev)
     launches = {"serve": serve_launches, "train": train_launches,
                 "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
-                "int8": int8_launches}
+                "int8": int8_launches, "resnet_train": resnet_launches}
     rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
     rows += phase_kernels(kernels, net_bf16, launches, bwd_captured_bf16, (), dev,
                           bf16=True)
@@ -1132,6 +1378,8 @@ def main():
     torch.cuda.empty_cache()
     phase_small_input(dev)
     phase_small_train(dev)
+    phase_small_train(dev, frozen_bn=False)
+    phase_small_resnet(dev)
     phase_small_input_bf16(dev)
     phase_small_int8(dev)
     say("total: %.1f s" % (time.perf_counter() - t_start))

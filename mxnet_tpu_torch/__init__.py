@@ -6,8 +6,10 @@ module layout (``ops/nn.py``, ``ops/detection.py``, ``gluon/nn``,
 kernels of its path rewritten as CUDA kernels (``ops/csrc``).  It imports
 neither JAX nor ``mxnet_tpu``.
 
-Ported so far: Deformable R-FCN inference,
-``gluon.model_zoo.detection.rfcn_resnet101(...)`` then ``net(data, im_info)``.
+Ported so far: Deformable R-FCN serving and training
+(``gluon.model_zoo.detection.rfcn_resnet101``, ``train_fused``), int8
+post-training quantization (``contrib.quantization``), and the Gluon ResNet
+train step (``gluon.model_zoo.vision``, ``gluon.functional.make_train_step``).
 """
 from .context import full_fp32, resolve_device
 

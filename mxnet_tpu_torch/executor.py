@@ -3,8 +3,8 @@
 The JAX executor hands the composed graph to ``jax.jit``; here the graph
 runs eagerly, node by node in topological order, each node calling its
 registered op on the outputs of its inputs.  Only the inference forward is
-ported: ``forward(is_train=True)`` (batch statistics, ROADMAP A3) and
-``backward`` (the symbolic training path, ROADMAP A8) raise.
+ported: ``forward(is_train=True)`` and ``backward`` (the symbolic training
+path, ROADMAP A8) raise.
 """
 from __future__ import annotations
 
@@ -52,8 +52,8 @@ class Executor:
         synchronisation of its own: ranges stay on the device."""
         if is_train:
             raise NotImplementedError(
-                "Executor.forward(is_train=True) is not ported: BatchNorm batch "
-                "statistics (ROADMAP A3) and the symbolic training path (A8)")
+                "Executor.forward(is_train=True) is not ported: the symbolic "
+                "training path (ROADMAP A8)")
         for k, v in feeds.items():
             if k not in self.arg_dict:
                 raise ValueError("forward() got unknown argument %r; expected "

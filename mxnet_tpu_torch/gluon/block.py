@@ -43,12 +43,18 @@ class HybridBlock(torch.nn.Module):
     """``torch.nn.Module`` with a Gluon ``prefix`` and ``name_scope()``.
 
     ``gluon_params`` names the block's own parameters and buffers by their
-    Gluon short names (the attribute names here are the same)."""
+    Gluon short names (the attribute names here are the same).
+
+    A block is built in eval mode (``training`` False), as a Gluon block
+    runs in predict mode outside ``autograd.record()``: BatchNorm uses its
+    running statistics until a train step (or the caller's ``train()``)
+    turns training mode on."""
 
     gluon_params = ()
 
     def __init__(self, prefix=None):
         super().__init__()
+        self.training = False
         self._empty_prefix = prefix == ""
         self.prefix = _create_prefix(prefix, self._alias())
         self._counter = {}

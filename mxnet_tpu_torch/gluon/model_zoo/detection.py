@@ -5,7 +5,9 @@ Architecture (Deformable-ConvNets R-FCN recipe), built as in the JAX
 package, so that every block gets the same Gluon name:
 
 * ResNet-101 trunk: conv1 + res2..res4 at stride 16, BatchNorm on running
-  statistics (frozen); no gradient reaches conv1 and res2 (``BlockGrad``);
+  statistics (frozen, ``use_global_stats``) or, with ``frozen_bn=False``,
+  on batch statistics in training mode; no gradient reaches conv1 and res2
+  (``BlockGrad``);
 * res5 at dilation 2 and stride 1, its three 3×3 convs deformable
   (num_deformable_group=4);
 * RPN on res4; proposals by MultiProposal (greedy NMS, pre/post counts
@@ -73,15 +75,17 @@ class _Bottleneck(HybridBlock):
     """ResNet-v1 bottleneck with optional dilation / deformable 3×3."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 dilation=1, deformable=False, prefix=None, device=None):
+                 dilation=1, deformable=False, frozen_bn=True, prefix=None,
+                 device=None):
         super().__init__(prefix=prefix)
         mid = channels // 4
         dev = dict(device=device)
+        bn = dict(use_global_stats=frozen_bn, device=device)
         with self.name_scope():
             self.body = nn.HybridSequential(prefix="")
             self.body.add(nn.Conv2D(mid, 1, strides=stride, use_bias=False,
                                     in_channels=in_channels, **dev))
-            self.body.add(nn.BatchNorm(in_channels=mid, **dev))
+            self.body.add(nn.BatchNorm(in_channels=mid, **bn))
             self.body.add(nn.Activation("relu"))
             if deformable:
                 self.body.add(DeformableConv2D(
@@ -91,17 +95,17 @@ class _Bottleneck(HybridBlock):
                 self.body.add(nn.Conv2D(
                     mid, 3, strides=1, padding=dilation, dilation=dilation,
                     use_bias=False, in_channels=mid, **dev))
-            self.body.add(nn.BatchNorm(in_channels=mid, **dev))
+            self.body.add(nn.BatchNorm(in_channels=mid, **bn))
             self.body.add(nn.Activation("relu"))
             self.body.add(nn.Conv2D(channels, 1, strides=1, use_bias=False,
                                     in_channels=mid, **dev))
-            self.body.add(nn.BatchNorm(in_channels=channels, **dev))
+            self.body.add(nn.BatchNorm(in_channels=channels, **bn))
             if downsample:
                 self.downsample = nn.HybridSequential(prefix="down_")
                 self.downsample.add(nn.Conv2D(
                     channels, 1, strides=stride, use_bias=False,
                     in_channels=in_channels, **dev))
-                self.downsample.add(nn.BatchNorm(in_channels=channels, **dev))
+                self.downsample.add(nn.BatchNorm(in_channels=channels, **bn))
             else:
                 self.downsample = None
 
@@ -112,19 +116,20 @@ class _Bottleneck(HybridBlock):
 
 class _ResStage(HybridBlock):
     def __init__(self, units, channels, stride, in_channels, dilation=1,
-                 deformable=False, prefix=None, device=None):
+                 deformable=False, frozen_bn=True, prefix=None, device=None):
         super().__init__(prefix=prefix)
         with self.name_scope():
             self.stage = nn.HybridSequential(prefix="")
             self.stage.add(_Bottleneck(
                 channels, stride, True, in_channels=in_channels,
-                dilation=dilation, deformable=deformable, prefix="unit1_",
-                device=device))
+                dilation=dilation, deformable=deformable, frozen_bn=frozen_bn,
+                prefix="unit1_", device=device))
             for i in range(units - 1):
                 self.stage.add(_Bottleneck(
                     channels, 1, False, in_channels=channels,
                     dilation=dilation, deformable=deformable,
-                    prefix="unit%d_" % (i + 2), device=device))
+                    frozen_bn=frozen_bn, prefix="unit%d_" % (i + 2),
+                    device=device))
 
     def forward(self, x):
         return self.stage(x)
@@ -171,8 +176,11 @@ class DeformableRFCN(HybridBlock):
         share (R-CNN targets).
     rpn_batch : sampled anchors per image (RPN targets).
     max_gts : ground-truth rows per image.
-    frozen_bn : BatchNorm on running statistics; ``False`` (batch
-        statistics) is not ported and raises.
+    frozen_bn : every trunk BatchNorm on running statistics
+        (``use_global_stats``, the default); ``False``: batch statistics in
+        training mode (the train step's), folded into the running ones,
+        which the net uses in eval mode (serving).  The net is built in
+        eval mode.
     device : where the weights live; None means CUDA, and raises without it
         (pass ``"cpu"`` to run on the CPU).
     generator : ``torch.Generator`` for the random initial weights.
@@ -185,11 +193,6 @@ class DeformableRFCN(HybridBlock):
                  rpn_batch=256, max_gts=100, frozen_bn=True, device=None,
                  generator=None, prefix=None):
         super().__init__(prefix=prefix)
-        if not frozen_bn:
-            raise NotImplementedError(
-                "DeformableRFCN: frozen_bn=False (BatchNorm batch statistics) "
-                "is not ported yet; it is ROADMAP.md item A3 (BatchNorm batch "
-                "statistics)")
         self.device = resolve_device(device)
         self.classes = int(classes)
         self.k = int(pooled_size)
@@ -213,17 +216,18 @@ class DeformableRFCN(HybridBlock):
         k2 = self.k * self.k
         A = self.num_anchors
         dev = dict(device=self.device)
+        trunk = dict(frozen_bn=frozen_bn, **dev)
         with self.name_scope():
             self.conv1 = nn.HybridSequential(prefix="conv1_")
             self.conv1.add(nn.Conv2D(64, 7, 2, 3, use_bias=False, in_channels=3, **dev))
-            self.conv1.add(nn.BatchNorm(in_channels=64, **dev))
+            self.conv1.add(nn.BatchNorm(in_channels=64, use_global_stats=frozen_bn, **dev))
             self.conv1.add(nn.Activation("relu"))
             self.conv1.add(nn.MaxPool2D(3, 2, 1))
-            self.res2 = _ResStage(units[0], 256, 1, 64, prefix="res2_", **dev)
-            self.res3 = _ResStage(units[1], 512, 2, 256, prefix="res3_", **dev)
-            self.res4 = _ResStage(units[2], 1024, 2, 512, prefix="res4_", **dev)
+            self.res2 = _ResStage(units[0], 256, 1, 64, prefix="res2_", **trunk)
+            self.res3 = _ResStage(units[1], 512, 2, 256, prefix="res3_", **trunk)
+            self.res4 = _ResStage(units[2], 1024, 2, 512, prefix="res4_", **trunk)
             self.res5 = _ResStage(units[3], 2048, 1, 1024, dilation=2,
-                                  deformable=True, prefix="res5_", **dev)
+                                  deformable=True, prefix="res5_", **trunk)
             self.rpn_conv = nn.Conv2D(512, 3, padding=1, activation="relu",
                                       in_channels=1024, prefix="rpn_conv_", **dev)
             self.rpn_cls = nn.Conv2D(2 * A, 1, in_channels=512, prefix="rpn_cls_", **dev)

@@ -10,7 +10,7 @@ from ...ops import nn as ops_nn
 from ...ops.nn import pair
 from ..block import HybridBlock
 
-__all__ = ["Conv2D", "MaxPool2D"]
+__all__ = ["Conv2D", "GlobalAvgPool2D", "MaxPool2D"]
 
 
 class Conv2D(HybridBlock):
@@ -61,3 +61,15 @@ class MaxPool2D(HybridBlock):
 
     def forward(self, x):
         return ops_nn.pooling(x, **self._kwargs)
+
+
+class GlobalAvgPool2D(HybridBlock):
+    """Mean over H and W, (N, C, H, W) -> (N, C, 1, 1) (reference
+    conv_layers.py GlobalAvgPool2D); averaged in fp32 and cast back, as
+    the pooling op does."""
+
+    def _alias(self):
+        return "pool"
+
+    def forward(self, x):
+        return ops_nn.pooling(x, global_pool=True, pool_type="avg")

@@ -1,5 +1,5 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``): those
-of the Deformable R-FCN path and of the ResNet symbol.  NCHW throughout;
+of the Deformable R-FCN path, of the ResNet symbol and of the Gluon ResNet.  NCHW throughout;
 plain convolutions and dense layers go to ``torch.nn.functional`` and
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
@@ -34,7 +34,9 @@ def _fc_inputs(attrs):
 
 def _fc_params(attrs, shapes):
     nh = attrs["num_hidden"]
-    return {"weight": (nh, math.prod(shapes["data"][1:])), "bias": (nh,)}
+    data = shapes["data"]
+    width = math.prod(data[1:]) if attrs.get("flatten", True) else data[-1]
+    return {"weight": (nh, width), "bias": (nh,)}
 
 
 def _conv_params(attrs, shapes):
@@ -43,7 +45,7 @@ def _conv_params(attrs, shapes):
 
 
 def _bn_params(attrs, shapes):
-    c = shapes["data"][1]
+    c = shapes["data"][attrs.get("axis", 1) % len(shapes["data"])]
     return {"gamma": (c,), "beta": (c,), "moving_mean": (c,), "moving_var": (c,)}
 
 
@@ -52,10 +54,12 @@ def _softmax_output_label_shape(attrs, shapes):
 
 
 @register("FullyConnected", inputs_fn=_fc_inputs, infer_params=_fc_params)
-def fully_connected(data, weight, bias=None, *, num_hidden, no_bias=False):
+def fully_connected(data, weight, bias=None, *, num_hidden, no_bias=False,
+                    flatten=True):
     """Dense layer (reference src/operator/nn/fully_connected.cc) on data
-    flattened to 2-D; weight (num_hidden, in_dim)."""
-    x = data.reshape(data.shape[0], -1)
+    flattened to 2-D, or with ``flatten=False`` on its last axis; weight
+    (num_hidden, in_dim)."""
+    x = data.reshape(data.shape[0], -1) if flatten else data
     if weight.shape != (num_hidden, x.shape[-1]):
         raise ValueError("FullyConnected: weight %s does not match "
                          "num_hidden=%d and input width %d"
@@ -83,23 +87,50 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(1, 1),
 
 @register("BatchNorm", aux=("moving_mean", "moving_var"), infer_params=_bn_params)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
-               momentum=0.9, fix_gamma=True):
-    """Batch normalization over channel axis 1 with the running statistics
-    (reference src/operator/nn/batch_norm.cc, ``use_global_stats``): the
-    inference branch of ``mxnet_tpu/ops/nn.py batch_norm``, in its
-    operation order.  ``momentum`` only matters to the training branch,
-    which is not ported.
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, training=False):
+    """Batch normalization over channel axis ``axis`` (reference
+    src/operator/nn/batch_norm.cc; ``mxnet_tpu/ops/nn.py batch_norm``, in
+    its operation order), on data of any rank.
+
+    With ``training`` and not ``use_global_stats`` the statistics are the
+    batch's, in fp32, in the JAX op's shifted one-pass form: with the
+    running mean m0 as each channel's reference, ``d = x − m0``,
+    ``var = max(E[d²] − E[d]², 0)`` and ``mean = E[d] + m0``, so that the
+    cancellation grows with |batch mean − m0| and not with |mean| / std.
+    The variance is the biased one.  Otherwise they are the running
+    statistics.  ``scale = γ / √(var + eps)`` and ``shift = β − mean·γ /
+    √(var + eps)`` are cast to the data's dtype, and ``out = data·scale +
+    shift``.
+
+    Returns ``out``, or ``(out, mean, var)`` with ``output_mean_var``;
+    gradients flow through ``mean`` and ``var``.  The running statistics
+    are not updated here: ``momentum`` is the caller's (the Gluon layer
+    folds ``m·running + (1 − m)·batch`` in after the forward).
 
     The defaults are the op's own (``eps=1e-3``, ``fix_gamma=True``); the
-    Gluon layer passes ``1e-5`` and ``False``.
+    Gluon layer passes ``1e-5`` and ``fix_gamma = not scale``.
     """
+    ax = axis % data.dim()
+    red = tuple(i for i in range(data.dim()) if i != ax)
     bshape = [1] * data.dim()
-    bshape[1] = data.shape[1]
+    bshape[ax] = data.shape[ax]
+    if use_global_stats or not training:
+        mean, var = moving_mean, moving_var
+    else:
+        m0 = moving_mean.to(torch.float32)
+        d = data.to(torch.float32) - m0.reshape(bshape)
+        dmean = torch.mean(d, dim=red)
+        dex2 = torch.mean(d * d, dim=red)
+        # torch.maximum halves the gradient at a tie, as jnp.maximum does
+        var = torch.maximum(dex2 - dmean * dmean, dex2.new_zeros(()))
+        mean = dmean + m0
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    inv = torch.sqrt(moving_var + eps)
+    inv = torch.sqrt(var + eps)
     scale = (g / inv).to(data.dtype).reshape(bshape)
-    shift = (beta - moving_mean * g / inv).to(data.dtype).reshape(bshape)
-    return data * scale + shift
+    shift = (beta - mean * g / inv).to(data.dtype).reshape(bshape)
+    out = data * scale + shift
+    return (out, mean, var) if output_mean_var else out
 
 
 @register("Pooling")

@@ -80,8 +80,13 @@ def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9,
     smooth-L1 (σ 1) over the sampled rois.  ``parts`` stacks the four.
     SGD: ``m = momentum·m + g; p = p − lr·m`` with m starting at 0, as the
     JAX step computes it; ``lr`` is a per-step float.  A parameter that gets
-    no gradient (conv1 and res2) counts a zero gradient.  BatchNorm running
-    statistics are buffers and stay as they are.  Forward and backward run in
+    no gradient (conv1 and res2) counts a zero gradient.  The net runs in
+    training mode inside the step (its mode restored after): with frozen
+    BatchNorm (``frozen_bn=True``, the default) the running statistics are
+    used and stay as they are; with ``frozen_bn=False`` every trunk
+    BatchNorm normalises with the batch's statistics and folds them into
+    its running buffers, those of conv1 and res2 too, whose gradient
+    ``BlockGrad`` stops.  Forward and backward run in
     full fp32 (TF32 off, the caller's setting restored after).  ``step.params`` lists the
     parameters it updates and ``step.momentum`` their momentum buffers, in
     the same order.
@@ -154,10 +159,15 @@ def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9,
                              % (batch, data.shape[0]))
         for p in params:
             p.grad = None
-        # the backward in full fp32 too: cuDNN would take TF32 by default
-        with full_fp32():
-            loss, parts = losses(data, im_info, gt, nz_rpn, nz_prop)
-            loss.backward()
+        was_training = net.training
+        net.train()
+        try:
+            # the backward in full fp32 too: cuDNN would take TF32 by default
+            with full_fp32():
+                loss, parts = losses(data, im_info, gt, nz_rpn, nz_prop)
+                loss.backward()
+        finally:
+            net.train(was_training)
         sgd(lr)
         return loss.detach(), parts.detach()
 

@@ -712,3 +712,75 @@ def test_bf16_wrappers_raise_on_float16(cuda):
         kernels.psroi_abuild(yv, xv, h)
     with pytest.raises(ValueError, match="float16"):
         kernels.psroi_abuild_bwd(yv, xv, torch.rand(4, 3, 5, device=cuda).to(h))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_batch_norm_training_card_against_cpu(cuda, dtype):
+    """The BatchNorm op's training branch (shifted one-pass statistics in
+    fp32) on the card against the CPU: output, batch mean and variance, and
+    the gradients of data, γ and β."""
+    from mxnet_tpu_torch.context import full_fp32
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    rng = np.random.RandomState(8)
+    x = rng.randn(8, 6, 14, 14).astype(np.float32) * 2
+    x[:, 1] += 12.0  # a channel far from its running mean
+    g, b = rng.rand(6).astype(np.float32) + 0.5, rng.randn(6).astype(np.float32)
+    m, v = (rng.randn(6) * 0.3).astype(np.float32), (rng.rand(6) + 0.5).astype(np.float32)
+    cot = torch.from_numpy(rng.randn(*x.shape).astype(np.float32))
+    res = []
+    for d in ("cpu", cuda):
+        leaves = [torch.from_numpy(a).to(d, dtype).requires_grad_() for a in (x, g, b)]
+        with full_fp32():
+            out, mean, var = ops_nn.batch_norm(
+                *leaves, torch.from_numpy(m).to(d), torch.from_numpy(v).to(d), eps=1e-5,
+                fix_gamma=False, training=True, output_mean_var=True)
+            loss = (out.float() * cot.to(d)).sum() + mean.sum() + var.sum()
+            grads = torch.autograd.grad(loss, leaves)
+        res.append([t.detach().float().cpu() for t in (out, mean, var) + grads])
+    for name, got, ref in zip(("out", "mean", "var", "d_data", "d_gamma", "d_beta"), *res):
+        # fp32 reductions in another order (the variance keeps the rounding
+        # of E[d²] ~ 150 for the far channel); bf16: a few ulps of the largest
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -5
+        torch.testing.assert_close(got, ref, rtol=tol, atol=tol * float(ref.abs().max()),
+                                   msg=lambda msg, n=name: "%s: %s" % (n, msg))
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["fp32", "bf16"])
+def test_narrow_resnet_step_card_against_cpu(cuda, dtype):
+    """Two steps of the narrow ResNet V1 train step (64x64, batch 4, SGD lr
+    0.05 momentum 0.9) on the card against the CPU from the same weights:
+    the first step's loss and running statistics, and no ported kernel
+    launched."""
+    from mxnet_tpu_torch.gluon.functional import make_train_step
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
+
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(4, 3, 64, 64).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, 4).astype(np.float32))
+    res = []
+    kernels.reset_launches()
+    for d in ("cpu", cuda):
+        net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128], classes=10,
+                       device=d, generator=torch.Generator().manual_seed(9))
+        step, state, (names, _, aux_idx) = make_train_step(
+            net, SoftmaxCrossEntropyLoss(), learning_rate=0.05, momentum=0.9,
+            compute_dtype=dtype)
+        state, loss = step(state, x.to(d), y.to(d))
+        stats = {names[i]: t.cpu().clone() for i, t in zip(aux_idx, state[2])}
+        state, loss2 = step(state, x.to(d), y.to(d))
+        assert all(t.dtype == torch.float32 for part in state for t in part)
+        assert not net.training
+        res.append((float(loss), float(loss2), stats))
+    assert all(k.wrapper.launches == 0 for k in kernels.KERNELS.values())
+    (l_ref, l2_ref, s_ref), (l_got, l2_got, s_got) = res
+    bf16 = dtype is not None
+    assert np.isfinite(l2_got) and np.isfinite(l2_ref)
+    # fp32: sums in another order; bf16: each device rounds its bf16
+    # convolutions at other places
+    np.testing.assert_allclose(l_got, l_ref, rtol=3e-2 if bf16 else 1e-5)
+    for name, ref in s_ref.items():
+        tol = 5e-2 if bf16 else 1e-5
+        torch.testing.assert_close(s_got[name], ref, rtol=tol, atol=tol * float(ref.abs().max()),
+                                   msg=lambda msg, n=name: "%s: %s" % (n, msg))

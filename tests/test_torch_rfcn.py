@@ -21,6 +21,7 @@ from mxnet_tpu.gluon.model_zoo.detection import DeformableRFCN as JaxRFCN
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo import (DeformableConv2D, DeformableRFCN,
                                              load_jax_params, rfcn_resnet101)
+from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(classes=3, image_shape=(64, 96), units=(1, 1, 1, 1), scales=(1, 2),
@@ -144,9 +145,24 @@ def test_load_jax_params_rejects_mismatches(pair):
         load_jax_params(net, bad)
 
 
-def test_batch_statistics_batchnorm_is_not_ported():
-    with pytest.raises(NotImplementedError, match="frozen_bn=False"):
-        DeformableRFCN(device="cpu", frozen_bn=False, **CFG)
+def test_batch_statistics_net_is_built_in_eval_mode_and_serves_on_running_statistics(pair):
+    """``frozen_bn=False`` is built in eval mode, so that it serves on the
+    running statistics, as the frozen net does, and leaves them as they
+    are: both give the same answer from the same weights."""
+    _, _, params, x, info, _ = pair
+    live = DeformableRFCN(device="cpu", frozen_bn=False, **CFG)
+    assert not any(m.training for m in live.modules())
+    rng = np.random.RandomState(5)
+    stats = {k: (rng.rand(*v.shape) + 0.5 if k.endswith("_var") else rng.randn(*v.shape) * 0.1)
+             .astype(np.float32) for k, v in params.items() if k.endswith(("_mean", "_var"))}
+    load_jax_params(live, dict(params, **stats))
+    frozen = load_jax_params(DeformableRFCN(device="cpu", **CFG), dict(params, **stats))
+    got = live(_t(x), _t(info))
+    for g, r in zip(got, frozen(_t(x), _t(info))):
+        assert torch.equal(g, r)
+    for k, v in live.gluon_named_tensors().items():
+        if k in stats:
+            np.testing.assert_array_equal(v.numpy(), stats[k])
 
 
 def _gluon(make):
@@ -181,8 +197,10 @@ def _quantize_model(**kw):
     _gluon(lambda **kw: DeformableConv2D(8, 4, num_deformable_group=2, **kw)),
     _simple_bind,
     _quantize_model,
+    _gluon(lambda **kw: tnn.Dense(4, in_units=3, **kw)),
+    _gluon(lambda **kw: resnet18_v1(classes=10, **kw)),
 ], ids=["rfcn_resnet101", "DeformableRFCN", "Conv2D", "BatchNorm",
-        "DeformableConv2D", "simple_bind", "quantize_model"])
+        "DeformableConv2D", "simple_bind", "quantize_model", "Dense", "resnet18_v1"])
 def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -240,7 +258,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 port / "symbol" / "symbol.py", port / "symbol" / "__init__.py",
                 port / "executor.py", port / "io.py",
                 port / "contrib" / "quantization.py",
-                port / "models" / "resnet_symbol.py"):
+                port / "models" / "resnet_symbol.py",
+                port / "gluon" / "functional.py", port / "gluon" / "loss.py",
+                port / "gluon" / "model_zoo" / "vision" / "__init__.py",
+                port / "gluon" / "model_zoo" / "vision" / "resnet.py"):
         assert new in files
     for f in files:
         for mod in _imports(f):

@@ -292,7 +292,7 @@ def test_simple_bind_allocates_int8_for_the_offline_weights(quantized):
 
 def test_executor_runs_inference_only(nets):
     exe = nets["tnet"].simple_bind(device="cpu", data=SHAPE)
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError, match="A8"):
         exe.forward(is_train=True)
     with pytest.raises(NotImplementedError, match="A8"):
         exe.backward()
