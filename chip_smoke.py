@@ -46,12 +46,36 @@ Phases, in order; any failure exits non-zero:
    bf16 masters fp32, no ported kernel launched; then the first step at
    batch 2 on the card against the CPU from the same weights (loss, two
    weights' updates, a running variance);
-8. small input: the tiny configuration on the card against the same model on
+8. frcnn: the Faster R-CNN VGG16 path of bench.py's third headline
+   (``MXNET_BENCH=frcnn``; the JAX example's ``build_net(vgg16=True)``: 20
+   classes, 608x1024, seeded N(0, 2/fan_in) weights): serve with the
+   reference's TEST proposal counts 6000/300, four single-image requests
+   and one batch of two, each answer checked (shapes (B*300, 5), (B*300,
+   21), (B*300, 84), finite values, probabilities, roi corners) and one NMS
+   launch a request; then the train step (TRAIN counts 12000/2000,
+   batch_rois 128, rpn_batch 256, max_gts 16, momentum SGD 0.9 at lr 1e-3)
+   on the serve model's weights: 2 warm-up steps (the second records NMS's
+   N = 12,000 call and ROIPooling's inputs), 5 timed steps at batch 1 and
+   one at batch 2 in fp32, then 2 warm-up and 3 timed steps in bf16
+   (``compute_dtype="bfloat16"``, fp32 masters); every step's loss parts
+   finite and one NMS launch a step, conv1/conv2 bit-identical, every other
+   tensor moved.  One serve forward and one step of each dtype run under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host synchronisation.
+   Each path prints its ms, img/s, peak memory, device profile (kernels,
+   busy, idle share, groups) and ROIPooling's device ms and peak bytes on
+   its own inputs; the kernels phase holds NMS bit for bit against its
+   plain version at N = 12,000 and times it;
+9. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
    with the same weights and the same noise, with frozen BatchNorm and with
    batch statistics (``frozen_bn=False``); one step of the narrow ResNet V1
-   in fp32 and bf16; the R-FCN stages in bf16; and the CIFAR ResNet-8 int8
-   symbol with the same weights and calibration table on both devices.
+   in fp32 and bf16; the R-FCN stages in bf16; the CIFAR ResNet-8 int8
+   symbol with the same weights and calibration table on both devices; and
+   the tiny Faster R-CNN stage by stage, end to end and over one train step
+   with the same weights, noise and dropout masks.
+
+Each phase prints its seconds, and the run its total, before the last two
+lines.
 
 Between 4 and 5 the bf16 R-FCN path runs at the same full width: serve (the model
 with its own seeded weights, ``cast("bfloat16")``, three single-image
@@ -61,7 +85,7 @@ masters, momentum and BatchNorm statistics; 2 warm-up steps, the second
 recording the backward kernels' inputs, and 3 timed steps at batch 1), each
 with its launch counts checked per request or step; phase 5 then holds the
 four bf16 kernel instances against their plain versions on the bf16 path's
-calls, each bf16 output within one bf16 ulp.
+calls, each bf16 output within one bf16 ulp.  Phase 5 runs after phase 8.
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -109,6 +133,15 @@ SMALL_TRAIN_BN_STATS = ("res2_unit1_batchnorm2_running_var",
 SMALL_TRAIN_BN_SEED, SMALL_TRAIN_BN_RPN_GAIN = SEED + 17, 2.0
 # the narrow ResNet of tests/test_torch_resnet.py
 NARROW = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128], classes=10)
+# bench.py MXNET_BENCH=frcnn: the JAX example's build_net(vgg16=True)
+# (faster_rcnn_vgg16, 20 VOC classes, 608x1024, max_gts 16, TRAIN proposal
+# counts 12000/2000, batch_rois 128, rpn_batch 256), momentum SGD 0.9 at lr
+# 1e-3; served with the reference's TEST counts 6000/300 (demo.py:74-75)
+FRCNN_SERVE_NMS = (6000, 300)
+FRCNN_LR = 1e-3
+FRCNN_TIMED, FRCNN_TIMED_BF16 = 5, 3
+# the tiny Faster R-CNN's tie-free seed and RPN score weights' gain
+SMALL_FRCNN_SEED, SMALL_FRCNN_RPN_GAIN = 42, 2.0
 
 
 def fail(msg):
@@ -167,15 +200,17 @@ def make_request(gen, infos, shape, dev):
     return data, torch.tensor(infos, dtype=torch.float32).to(dev)
 
 
-def check_answer(net, out, im_info, dtype=torch.float32):
+def check_answer(net, out, im_info, dtype=torch.float32, box_cols=8):
     """Shapes, dtypes (rois fp32; cls_prob and bbox_pred in the model's
-    ``dtype``), finite values, probabilities and roi corners."""
+    ``dtype``), finite values, probabilities and roi corners; bbox_pred has
+    ``box_cols`` columns (8 for R-FCN's two-class boxes, 4·(classes + 1)
+    for Faster R-CNN's)."""
     rois, prob, bbox = out
     B = im_info.shape[0]
     R = B * net.rpn_post_nms
     for t, shape, name, dt in ((rois, (R, 5), "rois", torch.float32),
                                (prob, (R, net.classes + 1), "cls_prob", dtype),
-                               (bbox, (R, 8), "bbox_pred", dtype)):
+                               (bbox, (R, box_cols), "bbox_pred", dtype)):
         if tuple(t.shape) != shape or t.dtype != dt:
             fail("%s is %s %s, expected %s %s" % (name, t.dtype, tuple(t.shape), dt, shape))
         if not bool(torch.isfinite(t).all()):
@@ -286,14 +321,14 @@ def train_noise(net, batch, gen, dev):
             for s in train_fused.noise_shapes(net, batch)]
 
 
-def checked_step(kernels, step, inputs, noise, expect, what):
+def checked_step(kernels, step, inputs, noise, expect, what, lr=LR):
     """One train step on ``inputs`` and the noise ``noise()`` draws: its
     host-clock ms (ended by a synchronize), loss and parts; fails unless the
     loss is fp32, the parts finite and the kernels' launches ``expect``."""
     before = counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss, parts = step(*inputs, *noise(), LR)
+    loss, parts = step(*inputs, *noise(), lr)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     parts = parts.tolist()
@@ -1338,6 +1373,329 @@ def phase_small_int8(dev):
             n_int, float((got - ref).abs().max())))
 
 
+def no_host_sync(fn, what):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any host
+    synchronisation inside it fails the run."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        fail("%s synchronised the host: %s" % (what, e))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+def capture_roi_pooling(run):
+    """Run ``run()`` with ``ops.detection.roi_pooling`` recording its
+    inputs: -> [(data detached, rois, keywords)]."""
+    from mxnet_tpu_torch.ops import detection as ops_det
+
+    orig, seen = ops_det.roi_pooling, []
+
+    def spy(data, rois, **kw):
+        seen.append((data.detach(), rois, kw))
+        return orig(data, rois, **kw)
+
+    ops_det.roi_pooling = spy
+    try:
+        run()
+    finally:
+        ops_det.roi_pooling = orig
+    torch.cuda.synchronize()
+    return seen
+
+
+def roi_pooling_cost(call, train):
+    """Device ms of one ROIPooling call on a path's own inputs (forward, or
+    forward and backward with ``train``; CUDA events around 3 calls behind a
+    spin kernel) and its peak bytes above what was allocated before it."""
+    from mxnet_tpu_torch.ops import detection as ops_det
+
+    data, rois, kw = call
+    g = torch.randn((rois.shape[0], data.shape[1]) + (7, 7), device=data.device,
+                    generator=torch.Generator(device=data.device).manual_seed(SEED),
+                    ).to(data.dtype)
+
+    def run():
+        if not train:
+            with torch.inference_mode():
+                return ops_det.roi_pooling(data, rois, **kw)
+        x = data.detach().requires_grad_()
+        ops_det.roi_pooling(x, rois, **kw).backward(g)
+        return x.grad
+
+    ms = time_ms(run, 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return ms, torch.cuda.max_memory_allocated() - base
+
+
+def frcnn_expect(kernels):
+    """Faster R-CNN's launches a forward or step: one NMS over the batch,
+    no other ported kernel (ROIPooling and the rest are PyTorch)."""
+    return {n: int(n == "nms_alive") for n in kernels.KERNELS}
+
+
+def report_path(what, card, times, batch, peak, prof, roi):
+    """Print a path's step or request ms, img/s, device profile and its
+    ROIPooling cost; -> the same as a dict."""
+    ms = statistics.median(times)
+    out = dict(ms=ms, all_ms=times, img_per_s=batch / ms * 1e3, peak_gib=peak,
+               profile=prof, roi_pooling_ms=roi[0], roi_pooling_peak_bytes=roi[1])
+    say("%s on %s: batch %d, median %.2f ms (%s), %.2f img/s, peak memory %.2f GiB; "
+        "%s kernels a call, device busy %s ms, idle share %s; ROIPooling %.3f ms, "
+        "peak %.3f GB above its inputs" % (
+            what, card, batch, ms, ", ".join("%.2f" % t for t in times),
+            batch / ms * 1e3, peak, prof.get("kernels_per_call"), prof.get("device_busy_ms"),
+            prof.get("idle_share"), roi[0], roi[1] / 1e9))
+    say("%s device groups: %s" % (what, json.dumps(prof)))
+    return out
+
+
+def phase_frcnn_serve(kernels, dev, card):
+    """Faster R-CNN VGG16 serve at full width: see the module docstring."""
+    from mxnet_tpu_torch import train_frcnn
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    t0 = time.perf_counter()
+    net, shape, classes = train_frcnn.build_net(
+        True, rpn_pre_nms=FRCNN_SERVE_NMS[0], rpn_post_nms=FRCNN_SERVE_NMS[1],
+        device=dev, generator=gen)
+    torch.cuda.synchronize()
+    say("frcnn serve: VGG16 Faster R-CNN, %d classes, %s, pre/post NMS %d/%d, %.1f M "
+        "parameters, built in %.1f s" % (classes, shape, net.rpn_pre_nms, net.rpn_post_nms,
+                                        sum(p.numel() for p in net.parameters()) / 1e6,
+                                        time.perf_counter() - t0))
+    expect = frcnn_expect(kernels)
+    H, W = shape
+    requests = [[[H, W, 1.0]]] * 4 + [[[H, W, 1.0], [H - 32, W - 64, 1.0]]]
+    for infos in (requests[0], requests[-1]):  # cuDNN and allocator set-up
+        net(*make_request(gen, infos, shape, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for i, infos in enumerate(requests):
+        data, im_info = make_request(gen, infos, shape, dev)
+        before = counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:  # the first request also shows that the forward never syncs
+            out = no_host_sync(lambda: net(data, im_info), "the frcnn serve forward")
+        else:
+            out = net(data, im_info)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_answer(net, out, im_info, box_cols=4 * (classes + 1))
+        got = {n: c - before[n] for n, c in counts(kernels).items()}
+        if got != expect:
+            fail("frcnn forward launched %s, expected %s" % (got, expect))
+        if len(infos) == 1:
+            times.append(ms)
+        say("frcnn request %d: batch %d, %.2f ms, %d rois, mean top score %.4f" % (
+            i + 1, len(infos), ms, out[0].shape[0], float(out[1][:, 1:].max(1).values.mean())))
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    data, im_info = make_request(gen, requests[0], shape, dev)
+    prof = device_profile(lambda: net(data, im_info), reps=3, top=8)
+    roi = roi_pooling_cost(capture_roi_pooling(lambda: net(data, im_info))[0], train=False)
+    res = report_path("frcnn serve (batch 1)", card, times, 1, peak, prof, roi)
+    say("frcnn serve launches (%d requests): %s" % (len(requests), json.dumps(launches)))
+    return net, launches, res
+
+
+def frcnn_train_steps(kernels, net, dev, card, dtype, timed, seed):
+    """Warm-up, timed and checked train steps of ``net`` at batch 1 (and one
+    at batch 2 in fp32): see the module docstring.  -> (launches, the NMS
+    calls of the second warm-up step, the path's report)."""
+    from mxnet_tpu_torch import train_frcnn
+
+    label = dtype or "float32"
+    rng = np.random.RandomState(seed)
+    rnd_gen = torch.Generator(device=dev).manual_seed(seed)
+    named = net.gluon_named_tensors()
+    fixed = {n: t.detach().clone() for n, t in named.items()
+             if n.startswith(("conv1_", "conv2_"))}
+    moving = {n: t.detach().clone() for n, t in named.items() if n not in fixed}
+    expect = frcnn_expect(kernels)
+
+    def inputs(batch):
+        return tuple(torch.from_numpy(a).to(dev) for a in train_frcnn.synthetic_coco(
+            rng, batch, net.image_shape, net.classes, net.max_gts))
+
+    def one_step(step, x, batch, what):
+        return checked_step(kernels, step, x,
+                            lambda: train_frcnn.draw_randoms(net, batch, rnd_gen, dev),
+                            expect, "frcnn %s %s" % (label, what), lr=FRCNN_LR)
+
+    step1 = train_frcnn.make_frcnn_train_step(net, 1, learning_rate=FRCNN_LR, momentum=0.9,
+                                              compute_dtype=dtype)
+    x1 = inputs(1)
+    for i in range(2):
+        out = []
+        run = lambda: out.append(one_step(step1, x1, 1, "warm-up step %d" % (i + 1)))
+        if i == 1:  # records NMS's call and ROIPooling's inputs
+            roi_calls = []
+            nms = capture_calls(kernels, ["nms_alive"], lambda: roi_calls.extend(
+                capture_roi_pooling(run)))["nms_alive"]
+        else:
+            run()
+        say("frcnn train %s warm-up step %d: %.2f ms, loss %.4f" % (label, i + 1, *out[0][:2]))
+    rnd = train_frcnn.draw_randoms(net, 1, rnd_gen, dev)
+    no_host_sync(lambda: step1(*x1, *rnd, FRCNN_LR), "the frcnn %s train step" % label)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for i in range(timed):
+        ms, loss, parts = one_step(step1, x1, 1, "step %d" % (i + 1))
+        times.append(ms)
+        say("frcnn train %s step %d: batch 1, %.2f ms, loss %.4f (rpn_cls %.4f rpn_bbox %.4f "
+            "rcnn_cls %.4f rcnn_bbox %.4f)" % (label, i + 1, ms, loss, *parts))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if dtype is None:
+        step2 = train_frcnn.make_frcnn_train_step(net, 2, learning_rate=FRCNN_LR, momentum=0.9)
+        ms2, loss, _ = one_step(step2, inputs(2), 2, "batch-2 step")
+        say("frcnn train float32 step: batch 2 (first at this batch size), %.2f ms, loss %.4f"
+            % (ms2, loss))
+    launches = counts(kernels)
+    for n, t in fixed.items():
+        if not torch.equal(named[n], t):
+            fail("frcnn train %s: %s moved; conv1/conv2 must get no gradient" % (label, n))
+    still = [n for n, t in moving.items() if torch.equal(named[n], t)]
+    if still:
+        fail("frcnn train %s: %d conv3+ and head tensors did not move: %s"
+             % (label, len(still), still[:3]))
+    kinds = {(p.dtype, m.dtype) for p, m in zip(step1.params, step1.momentum)}
+    if kinds != {(torch.float32, torch.float32)}:
+        fail("frcnn train %s: masters and momentum must stay fp32, got %s" % (label, kinds))
+    prof = device_profile(lambda: step1(*x1, *train_frcnn.draw_randoms(net, 1, rnd_gen, dev),
+                                        FRCNN_LR), reps=1, top=8)
+    roi = roi_pooling_cost(roi_calls[0], train=True)
+    res = report_path("frcnn train %s (batch 1)" % label, card, times, 1, peak, prof, roi)
+    say("frcnn train %s: conv1/conv2 fixed (%d tensors), %d conv3+ and head tensors moved, "
+        "fp32 masters and momentum; launches (%d steps): %s" % (
+            label, len(fixed), len(moving), timed + (dtype is None), json.dumps(launches)))
+    return launches, nms, res
+
+
+def phase_frcnn_train(kernels, serve_net, dev, card):
+    """The Faster R-CNN VGG16 train step at full width, fp32 then bf16, on
+    the JAX example's build_net(vgg16=True) with the serve model's weights."""
+    from mxnet_tpu_torch import train_frcnn
+
+    net, shape, classes = train_frcnn.build_net(True, device=dev)
+    net.load_state_dict(serve_net.state_dict())
+    say("frcnn train: VGG16 Faster R-CNN, %d classes, %s, pre/post NMS %d/%d, batch_rois "
+        "%d, rpn_batch %d, max_gts %d, SGD lr %g momentum 0.9" % (
+            classes, shape, net.rpn_pre_nms, net.rpn_post_nms, net.batch_rois,
+            net.rpn_batch, net.max_gts, FRCNN_LR))
+    launches, nms, fp32 = frcnn_train_steps(kernels, net, dev, card, None, FRCNN_TIMED,
+                                            SEED + 42)
+    launches_bf16, _, bf16 = frcnn_train_steps(kernels, net, dev, card, "bfloat16",
+                                               FRCNN_TIMED_BF16, SEED + 43)
+    return launches, launches_bf16, nms, {"float32": fp32, "bfloat16": bf16}
+
+
+def nms_at_train_size(kernels, calls):
+    """NMS on the Faster R-CNN train step's own call (N = 12,000, 188
+    words): bit for bit against the plain version, the kernel's device time
+    and bound, and the device operations of one call (the staged scan, not
+    the global one, takes N = 12,000).  -> keys for the NMS row."""
+    k = kernels.KERNELS["nms_alive"]
+    for args, kw in calls:
+        got, ref = k.wrapper(*args, **kw), k.plain(*args, **kw)
+        torch.cuda.synchronize()
+        compare("nms_alive", got, ref)
+    args, kw = calls[0]
+    n = args[0].shape[1]
+    words = -(-n // 64)
+    ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
+    plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
+    bound_ms, bound_by = bound(*work("nms_alive", args, k.wrapper(*args, **kw)))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        k.wrapper(*args, **kw)
+        torch.cuda.synchronize()
+    ops = sorted({e.key for e in prof.key_averages()
+                  if float(getattr(e, "self_device_time_total", 0) or 0) > 0})
+    if not any("nms_scan_kernel" in o and "global" not in o for o in ops):
+        fail("nms at N=%d did not run the staged scan: %s" % (n, ops))
+    say("kernel nms_alive at the frcnn train size: N %d, %d words, %.4f ms (plain %.4f ms), "
+        "bound %.6f ms by %s, bit-identical over %d calls; device ops %s"
+        % (n, words, ms, plain_ms, bound_ms, bound_by, len(calls), ops))
+    return dict(frcnn_train_n=n, frcnn_train_words=words, frcnn_train_ms=ms,
+                frcnn_train_plain_ms=plain_ms, frcnn_train_bound_ms=bound_ms)
+
+
+def phase_small_frcnn(dev):
+    """The tiny Faster R-CNN on the card against the CPU: stage by stage,
+    each stage fed the CPU's inputs, end to end, then one fp32 train step
+    with the same weights, noise and dropout masks.  At this seed and RPN
+    gain the CPU's 144 foreground scores of each image lie at least 4.6e-5
+    apart, far above the devices' rounding differences."""
+    from mxnet_tpu_torch import train_frcnn
+    from mxnet_tpu_torch.gluon.model_zoo import FasterRCNN
+
+    cfg = dict(classes=3, image_shape=(64, 96), rpn_pre_nms=200, rpn_post_nms=32,
+               **train_frcnn.TINY)
+    gen = torch.Generator().manual_seed(SMALL_FRCNN_SEED)
+    cpu = FasterRCNN(device="cpu", generator=gen, **cfg)
+    with torch.no_grad():
+        cpu.rpn_cls.weight.mul_(SMALL_FRCNN_RPN_GAIN)
+    gpu = FasterRCNN(device=dev, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(SMALL_FRCNN_SEED)
+    batch = [torch.from_numpy(a) for a in train_frcnn.synthetic_coco(
+        rng, 2, cpu.image_shape, cpu.classes, cpu.max_gts)]
+    data, info = batch[:2]
+    g = lambda t: t.to(dev)
+    with torch.inference_mode():
+        c5, g5 = cpu._features(data), gpu._features(g(data))
+        rc, rb = cpu._rpn(c5)
+        grc, grb = gpu._rpn(g(c5))
+        stages = [("c5", g5, c5, 1e-4 * float(c5.abs().max())),
+                  ("rpn_cls", grc, rc, 1e-4 * float(rc.abs().max())),
+                  ("rpn_bbox", grb, rb, 1e-4 * float(rb.abs().max()))]
+        rois = cpu._proposals(rc, rb, info)
+        stages.append(("rois", gpu._proposals(g(rc), g(rb), g(info)), rois, 1e-3))
+        cs, bp = cpu._head(c5, rois, rois_per_image=cpu.rpn_post_nms)
+        gcs, gbp = gpu._head(g(c5), g(rois), rois_per_image=cpu.rpn_post_nms)
+        stages += [("cls_prob", torch.softmax(gcs, -1), torch.softmax(cs, -1), 1e-5),
+                   ("bbox_pred", gbp, bp, 1e-4 * float(bp.abs().max()))]
+    for name, got, ref, atol in stages:
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=atol,
+                                   msg=lambda m, n=name: "small frcnn %s: %s" % (n, m))
+    for got, ref in zip(gpu(g(data), g(info)), cpu(data, info)):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-3)
+    rnd = train_frcnn.draw_randoms(cpu, 2, gen, "cpu")
+    res = []
+    for net, d in ((cpu, torch.device("cpu")), (gpu, dev)):
+        step = train_frcnn.make_frcnn_train_step(net, 2, learning_rate=FRCNN_LR, momentum=0.9)
+        _, parts = step(*(t.to(d) for t in batch + rnd))
+        named = net.gluon_named_tensors()
+        res.append((parts.cpu(), {k: named[k].grad.cpu() for k in
+                                  ("conv3_conv2d0_weight", "fc6_weight", "rpn_cls_weight")}))
+    (ref_parts, ref_grads), (got_parts, got_grads) = res
+    # four fp32 means over the same selection, summed in another order
+    torch.testing.assert_close(got_parts, ref_parts, rtol=1e-4, atol=1e-5,
+                               msg=lambda m: "small frcnn loss parts: %s" % m)
+    for k, ref in ref_grads.items():
+        if not float(ref.abs().max()) > 0:
+            fail("small frcnn: %s got no gradient on the CPU" % k)
+        torch.testing.assert_close(got_grads[k], ref, rtol=1e-3,
+                                   atol=1e-4 * float(ref.abs().max()),
+                                   msg=lambda m, k=k: "small frcnn %s gradient: %s" % (k, m))
+    say("small input, frcnn: the card agrees with the CPU stage by stage (%s), end to end, "
+        "and over one train step (loss parts %s; conv3, fc6 and rpn_cls gradients)"
+        % (", ".join(n for n, *_ in stages), ", ".join("%.5f" % v for v in got_parts.tolist())))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1347,41 +1705,69 @@ def main():
         fail("the port (mxnet_tpu_torch) is not importable next to this "
              "script: %s" % e)
     t_start = time.perf_counter()
+    seconds = {}
+
+    def phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        say("phase %s: %.1f s" % (name, seconds[name]))
+        return out
+
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    name = phase_device()
-    phase_build()
-    net, gen, serve_launches = phase_serve(kernels, dev)
-    train_launches, bwd_captured, train_nms = phase_train(kernels, net, dev, name)
-    net_bf16, serve_bf16_launches = phase_serve_bf16(kernels, dev)
-    train_bf16_launches, bwd_captured_bf16 = phase_train_bf16(kernels, net, dev, name)
-    int8_launches, int8_captured, int8_expect = phase_int8(kernels, dev, name)
-    resnet_launches = phase_resnet_train(kernels, dev, name)
-    phase_resnet_card_vs_cpu(dev)
+    name = phase("device", phase_device)
+    phase("build", phase_build)
+    net, gen, serve_launches = phase("serve", phase_serve, kernels, dev)
+    train_launches, bwd_captured, train_nms = phase("train", phase_train, kernels, net,
+                                                    dev, name)
+    net_bf16, serve_bf16_launches = phase("serve_bf16", phase_serve_bf16, kernels, dev)
+    train_bf16_launches, bwd_captured_bf16 = phase("train_bf16", phase_train_bf16,
+                                                   kernels, net, dev, name)
+    int8_launches, int8_captured, int8_expect = phase("int8", phase_int8, kernels, dev, name)
+    resnet_launches = phase("resnet", phase_resnet_train, kernels, dev, name)
+    phase("resnet_card_vs_cpu", phase_resnet_card_vs_cpu, dev)
+    frcnn_net, frcnn_serve_launches, frcnn_serve = phase(
+        "frcnn_serve", phase_frcnn_serve, kernels, dev, name)
+    frcnn_train_launches, frcnn_bf16_launches, frcnn_nms, frcnn_train = phase(
+        "frcnn_train", phase_frcnn_train, kernels, frcnn_net, dev, name)
+    del frcnn_net
+    say("frcnn: %s" % json.dumps({"serve": frcnn_serve, "train": frcnn_train}))
     launches = {"serve": serve_launches, "train": train_launches,
                 "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
-                "int8": int8_launches, "resnet_train": resnet_launches}
-    rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
-    rows += phase_kernels(kernels, net_bf16, launches, bwd_captured_bf16, (), dev,
-                          bf16=True)
-    edge = int8_edge_calls(kernels, dev)
-    for pair_name in INT8_PAIR:
-        # timed on the call with the most elements: its 100 MB of float32
-        # exceed the 50 MB L2, which the 20 calls in a row would otherwise
-        # serve from
-        calls = int8_captured[pair_name]
-        largest = max(range(len(calls)), key=lambda i: calls[i][0][0].numel())
-        rows.append(kernel_row(pair_name, kernels.KERNELS[pair_name], calls,
-                               int8_expect[pair_name], launches, "int8",
-                               extra_calls=edge[pair_name], timed_call=largest))
-    del net, net_bf16, int8_captured, bwd_captured, bwd_captured_bf16, train_nms
+                "int8": int8_launches, "resnet_train": resnet_launches,
+                "frcnn_serve": frcnn_serve_launches, "frcnn_train": frcnn_train_launches,
+                "frcnn_train_bf16": frcnn_bf16_launches}
+
+    def kernel_rows():
+        rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
+        next(r for r in rows if r["name"] == "nms_alive").update(
+            nms_at_train_size(kernels, frcnn_nms))
+        rows += phase_kernels(kernels, net_bf16, launches, bwd_captured_bf16, (), dev,
+                              bf16=True)
+        edge = int8_edge_calls(kernels, dev)
+        for pair_name in INT8_PAIR:
+            # timed on the call with the most elements: its 100 MB of float32
+            # exceed the 50 MB L2, which the 20 calls in a row would otherwise
+            # serve from
+            calls = int8_captured[pair_name]
+            largest = max(range(len(calls)), key=lambda i: calls[i][0][0].numel())
+            rows.append(kernel_row(pair_name, kernels.KERNELS[pair_name], calls,
+                                   int8_expect[pair_name], launches, "int8",
+                                   extra_calls=edge[pair_name], timed_call=largest))
+        return rows
+
+    rows = phase("kernels", kernel_rows)
+    del net, net_bf16, int8_captured, bwd_captured, bwd_captured_bf16, train_nms, frcnn_nms
     torch.cuda.empty_cache()
-    phase_small_input(dev)
-    phase_small_train(dev)
-    phase_small_train(dev, frozen_bn=False)
-    phase_small_resnet(dev)
-    phase_small_input_bf16(dev)
-    phase_small_int8(dev)
+    phase("small_input", phase_small_input, dev)
+    phase("small_train", phase_small_train, dev)
+    phase("small_train_bn", phase_small_train, dev, frozen_bn=False)
+    phase("small_resnet", phase_small_resnet, dev)
+    phase("small_input_bf16", phase_small_input_bf16, dev)
+    phase("small_int8", phase_small_int8, dev)
+    phase("small_frcnn", phase_small_frcnn, dev)
+    say("phases (s): %s" % json.dumps(seconds))
     say("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

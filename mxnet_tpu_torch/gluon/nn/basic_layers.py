@@ -10,17 +10,19 @@ from ...context import resolve_device
 from ...ops import nn as ops_nn
 from ..block import HybridBlock, HybridSequential
 
-__all__ = ["BatchNorm", "Dense", "Flatten", "HybridSequential"]
+__all__ = ["BatchNorm", "Dense", "Dropout", "Flatten", "HybridSequential"]
 
 
 class Dense(HybridBlock):
     """Fully-connected layer ``x·Wᵀ + b``, weight (units, in_units)
     (reference basic_layers.py:123).  With ``flatten`` (the default) the
     input is flattened to (batch, -1) first, else the layer acts on its
-    last axis.  The weight is uninitialised; the model initialises it."""
+    last axis.  ``activation`` (``"relu"``) is applied after the bias, as
+    Gluon's ``act`` child does.  The weight is uninitialised; the model
+    initialises it."""
 
-    def __init__(self, units, use_bias=True, flatten=True, in_units=0,
-                 prefix=None, device=None):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 in_units=0, prefix=None, device=None):
         super().__init__(prefix=prefix)
         if not in_units:
             raise ValueError("Dense: in_units is required (no deferred "
@@ -28,13 +30,35 @@ class Dense(HybridBlock):
         device = resolve_device(device)
         self._kwargs = dict(num_hidden=units, no_bias=not use_bias,
                             flatten=flatten)
+        self._act_type = activation
         self.weight = torch.nn.Parameter(torch.empty(units, in_units, device=device))
         self.bias = (torch.nn.Parameter(torch.zeros(units, device=device))
                      if use_bias else None)
         self.gluon_params = ("weight", "bias") if use_bias else ("weight",)
 
     def forward(self, x):
-        return ops_nn.fully_connected(x, self.weight, self.bias, **self._kwargs)
+        out = ops_nn.fully_connected(x, self.weight, self.bias, **self._kwargs)
+        if self._act_type is not None:
+            out = ops_nn.activation(out, act_type=self._act_type)
+        return out
+
+
+class Dropout(HybridBlock):
+    """Dropout of rate ``rate`` (reference basic_layers.py:196): the
+    identity in eval mode (every block is built in it); in training mode
+    ``ops.nn.dropout`` with the caller's ``keep`` mask, or one drawn from
+    ``generator`` (a ``torch.Generator`` on the data's device).  With
+    neither, training raises: the global random state is never used."""
+
+    def __init__(self, rate, axes=(), generator=None, prefix=None):
+        super().__init__(prefix=prefix)
+        self._rate = float(rate)
+        self._axes = tuple(axes)
+        self.generator = generator
+
+    def forward(self, x, keep=None):
+        return ops_nn.dropout(x, p=self._rate, axes=self._axes, training=self.training,
+                              keep=keep, generator=self.generator)
 
 
 class Flatten(HybridBlock):

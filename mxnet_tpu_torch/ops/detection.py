@@ -1,6 +1,6 @@
-"""Detection operators of the Deformable R-FCN path (counterpart of
-``mxnet_tpu/ops/detection.py``): deformable convolution, deformable PS-ROI
-pooling and MultiProposal with greedy NMS.
+"""Detection operators of the Deformable R-FCN and Faster R-CNN paths
+(counterpart of ``mxnet_tpu/ops/detection.py``): deformable convolution,
+deformable PS-ROI pooling, ROI pooling and MultiProposal with greedy NMS.
 
 Layouts are the JAX package's: NCHW maps, rois ``(R, 5)`` as
 ``[batch_idx, x1, y1, x2, y2]``, the ``(BG, N, C)`` dconv column.  The maps
@@ -27,7 +27,7 @@ from . import kernels
 from .nn import pair
 
 __all__ = ["deformable_convolution", "deformable_psroi_pooling",
-           "generate_base_anchors", "multi_proposal"]
+           "generate_base_anchors", "multi_proposal", "roi_pooling"]
 
 
 def _float_dtype(op, t):
@@ -300,6 +300,193 @@ def deformable_psroi_pooling(data, rois, trans=None, *, spatial_scale,
     out = torch.where(cnt > 0, s.to(f32) / torch.clamp(cnt, min=1.0), 0.0)
     # (R, K, PH, PW, cpc) -> (R, K·cpc = OD, PH, PW), in the data dtype
     return out.permute(0, 1, 4, 2, 3).reshape(R, OD, PH, PW).to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ROIPooling (reference src/operator/roi_pooling.cc)
+# ---------------------------------------------------------------------------
+
+def _roi_bins(rois, spatial_scale, PH, PW, H, W):
+    """Bin bounds of ``rois`` (R, 5), in fp32 whatever the data dtype, as
+    the JAX op computes them under ``jax.jit``: corners ``round(coord ·
+    scale)`` (half to even), bin size ``bs = extent · fp32(1/n)``, bins
+    ``[floor(p·bs), ceil((p+1)·bs))`` from the corner, clipped to the map.
+    The op writes ``extent / n``; XLA's simplifier turns a division by a
+    constant into a product by its reciprocal, so the jitted JAX op (its
+    train step and its serving forward) bins so, on the CPU as on the TPU,
+    while the op run eagerly divides: the two differ at a bin end where
+    ``(p+1)·bs`` is within an ulp of an integer (3/7·7 vs 3·fp32(1/7)·7).
+    -> (hstart, hend) (R, PH) and (wstart, wend) (R, PW), int64."""
+    f32 = torch.float32
+    rois = rois.to(f32)
+    xs, ys, xe, ye = (torch.round(rois[:, i] * spatial_scale).to(torch.int64)
+                      for i in (1, 2, 3, 4))
+    one = torch.ones((), dtype=torch.int64, device=rois.device)
+
+    def bounds(lo, hi, n, size):
+        extent = torch.maximum(hi - lo + 1, one).to(f32)
+        bs = extent * float(np.float32(1) / np.float32(n))  # an fp32 value, exact
+        p = torch.arange(n, dtype=f32, device=rois.device)[None, :]
+        start = torch.floor(p * bs[:, None]).to(torch.int64) + lo[:, None]
+        end = torch.ceil((p + 1) * bs[:, None]).to(torch.int64) + lo[:, None]
+        return torch.clamp(start, 0, size), torch.clamp(end, 0, size)
+
+    return bounds(ys, ye, PH, H) + bounds(xs, xe, PW, W)
+
+
+def _row_windows(data):
+    """The max of every window of rows of ``data`` (B, C, H, W): -> (B,
+    H(H+1)/2, C, W), window (a, l) (rows a .. a+l-1) at ``_window(a, l,
+    H)``, built by extending each window by one row."""
+    B, C, H, W = data.shape
+    rows = data.transpose(1, 2)  # (B, H, C, W), a view
+    out = torch.empty((B, H * (H + 1) // 2, C, W), dtype=data.dtype, device=data.device)
+    out[:, :H] = rows
+    prev, off = 0, H
+    for l in range(2, H + 1):
+        n = H - l + 1
+        torch.maximum(out[:, prev:prev + n], rows[:, l - 1:], out=out[:, off:off + n])
+        prev, off = off, off + n
+    return out
+
+
+def _window(a, l, H):
+    """Index of the row window (a, l) in ``_row_windows``' table."""
+    return (l - 1) * (2 * H + 2 - l) // 2 + a
+
+
+def _column_max(t, ws, we):
+    """max of ``t`` (R, PH, C, W) over the columns [ws, we) (R, PW) of each
+    bin -> (R, PH, C, PW), −inf for an empty bin: the max of two windows of
+    the largest power-of-two width 2^j ≤ we − ws, the window maxima built
+    level by level (a sparse table)."""
+    R, PH, C, W = t.shape
+    n = we - ws
+    o = torch.full((R, PH, C, ws.shape[1]), float("-inf"), dtype=t.dtype, device=t.device)
+    level, j = t, 0
+    while (1 << j) <= W:
+        span = 1 << j
+        if j:
+            level = torch.maximum(level[..., :-(span // 2)], level[..., span // 2:])
+        top = level.shape[-1] - 1
+        at = (n >= span) & (n < 2 * span)                              # (R, PW)
+        a = torch.clamp(ws, 0, top)[:, None, None].expand(R, PH, C, -1)
+        b = torch.clamp(we - span, 0, top)[:, None, None].expand(R, PH, C, -1)
+        both = torch.maximum(torch.gather(level, 3, a), torch.gather(level, 3, b))
+        o = torch.where(at[:, None, None], both, o)
+        j += 1
+    return o
+
+
+class _ROIMax(torch.autograd.Function):
+    """The JAX op's separable masked max, rows first, then columns, with
+    ``jnp.max``'s gradient: at each of the two stages a bin's gradient
+    splits equally among its tied maxima.
+
+    data (B, C, H, W); img (R,) each roi's image; hs, he (R, PH) and ws,
+    we (R, PW) its bins' row and column bounds.  -> (R, PH, C, PW); an
+    empty bin's value is arbitrary (the caller zeroes it, and so its
+    gradient).
+
+    Forward: a bin's row max is a lookup in the table of every row
+    window's max (``_row_windows``, H(H+1)/2 windows of (C, W) an image),
+    its column max a sparse-table lookup (``_column_max``).  Backward, per
+    stage: the column stage for each column bin; the row stage window by
+    window, independent of the roi count: the gradients of the bins that
+    share a row window are summed onto it, divided by the window's count
+    of tied maxima (a count table built beside the max table), and handed
+    to every row of the window that equals its max (``F.fold`` sums the
+    windows of one length onto the rows).  Shares sum in fp32 and round
+    once to the data's dtype."""
+
+    @staticmethod
+    def forward(ctx, data, img, hs, he, ws, we):
+        B, C, H, W = data.shape
+        R, PH = hs.shape
+        valid = he > hs
+        # an empty row bin reads any window: its output is zeroed
+        win = _window(torch.where(valid, hs, 0), torch.where(valid, he - hs, 1), H)
+        flat = (img[:, None] * (H * (H + 1) // 2) + win).reshape(-1)
+        table = _row_windows(data)
+        t = table.reshape(-1, C, W).index_select(0, flat).reshape(R, PH, C, W)
+        o = _column_max(t, ws, we)
+        ctx.save_for_backward(data, table, flat, ws, we, t, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        data, table, flat, ws, we, t, o = ctx.saved_tensors
+        B, C, H, W = data.shape
+        R, PH = t.shape[:2]
+        f32 = torch.float32
+        cols = torch.arange(W, device=data.device)
+        mw = (cols >= ws[..., None]) & (cols < we[..., None])          # (R, PW, W)
+        g_t = torch.zeros((R, PH, C, W), dtype=f32, device=data.device)
+        for pw in range(o.shape[-1]):
+            eq = (t == o[..., pw, None]) & mw[:, None, None, pw]
+            cnt = eq.sum(dim=-1, keepdim=True).clamp_(min=1)
+            g_t += torch.where(eq, g[..., pw, None] / cnt, 0)
+        # the column stage's gradient in the data's dtype, as the JAX op's
+        g_t = g_t.to(data.dtype).to(f32)
+        # per row window: the sum of its bins' gradients
+        per_window = torch.zeros((B * H * (H + 1) // 2, C, W), dtype=f32, device=data.device)
+        per_window.index_add_(0, flat, g_t.reshape(R * PH, C, W))
+        per_window = per_window.reshape(B, -1, C, W)
+        rows = data.transpose(1, 2)                                    # (B, H, C, W)
+        grad = torch.zeros((B, C * W, H, 1), dtype=f32, device=data.device)
+        cnt = torch.ones((B, H, C, W), dtype=torch.uint8, device=data.device)
+        prev = None
+        for l in range(1, H + 1):
+            n, off = H - l + 1, _window(0, l, H)
+            top = table[:, off:off + n]                                # (B, n, C, W)
+            if prev is not None:  # the window one row longer: its ties
+                cnt = cnt[:, :n] * (prev[:, :n] == top) + (rows[:, l - 1:] == top)
+            share = per_window[:, off:off + n] / cnt
+            hit = rows.unfold(1, l, 1) == top[..., None]               # (B, n, C, W, l)
+            tie = torch.where(hit, share[..., None], 0.0)
+            grad += torch.nn.functional.fold(
+                tie.permute(0, 2, 3, 4, 1).reshape(B, C * W * l, n),
+                output_size=(H, 1), kernel_size=(l, 1))
+            prev = top
+        grad = grad.reshape(B, C, W, H).transpose(2, 3)
+        return grad.to(data.dtype), None, None, None, None, None
+
+
+def roi_pooling(data, rois, *, pooled_size, spatial_scale, rois_per_image=0):
+    """Max pooling over roi bins (``mxnet_tpu/ops/detection.py roi_pooling``;
+    reference roi_pooling.cc:62).  data (B, C, H, W) float32 or bfloat16;
+    rois (R, 5) ``[batch_idx, x1, y1, x2, y2]`` in image coordinates.
+    Returns (R, C, PH, PW) in the data's dtype; an empty bin gives 0 and
+    passes no gradient.  Bin bounds as in ``_roi_bins`` (the jitted JAX
+    op's); within a bin the max runs over rows, then over columns, and a
+    gradient splits equally among tied maxima at each of the two stages
+    (``jnp.max``'s rule; ``_ROIMax``).
+
+    ``rois_per_image`` > 0 with R = B · rois_per_image is the caller's
+    promise that the rois are batch-major grouped (roi r on image
+    r // rois_per_image, the MultiProposal and proposal_target layout): the
+    batch_idx column is then not read (checking it on the card would
+    synchronise the host).  Otherwise each roi's image is its batch_idx.
+
+    The JAX op's masked rows stage is (rois, PH, C, H, W), 10.5 GB for 300
+    rois on a (1, 512, 38, 64) map; here each bin's rows are looked up in a
+    table of row windows (97 MB an image at that size), and the backward
+    works window by window (``_ROIMax``): no intermediate grows with the
+    roi count beyond (rois, PH, C, W).
+    """
+    PH, PW = pair(pooled_size)
+    B, C, H, W = data.shape
+    R = rois.shape[0]
+    _float_dtype("roi_pooling", data)
+    hs, he, ws, we = _roi_bins(rois, spatial_scale, PH, PW, H, W)
+    Rb = int(rois_per_image)
+    if Rb > 0 and R == B * Rb:
+        img = torch.arange(B, device=data.device).repeat_interleave(Rb)
+    else:
+        img = rois[:, 0].to(torch.int64)
+    out = _ROIMax.apply(data, img, hs, he, ws, we).permute(0, 2, 1, 3)
+    empty = (he <= hs)[:, None, :, None] | (we <= ws)[:, None, None, :]
+    return torch.where(empty, torch.zeros((), dtype=data.dtype, device=data.device), out)
 
 
 # ---------------------------------------------------------------------------

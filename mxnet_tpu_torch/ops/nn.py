@@ -1,5 +1,6 @@
 """Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``): those
-of the Deformable R-FCN path, of the ResNet symbol and of the Gluon ResNet.  NCHW throughout;
+of the Deformable R-FCN and Faster R-CNN paths, of the ResNet symbol and of
+the Gluon ResNet.  NCHW throughout;
 plain convolutions and dense layers go to ``torch.nn.functional`` and
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from .registry import register
 
 __all__ = ["pair", "convolution", "batch_norm", "pooling", "activation",
-           "softmax", "log_softmax", "fully_connected", "softmax_output"]
+           "dropout", "softmax", "log_softmax", "fully_connected", "softmax_output"]
 
 
 def pair(v):
@@ -191,6 +192,36 @@ def activation(data, *, act_type):
         raise NotImplementedError("Activation: only act_type='relu' is ported, "
                                   "got %r" % act_type)
     return torch.relu(data)
+
+
+def dropout(data, *, p=0.5, axes=(), training=False, keep=None, generator=None):
+    """Dropout (reference src/operator/nn/dropout.cc; ``mxnet_tpu/ops/nn.py
+    dropout``): ``where(keep, data / (1 − p), 0)`` in training, ``data``
+    otherwise or at ``p`` = 0.
+
+    ``keep`` (bool, ``data``'s shape, or 1 along ``axes``) is the mask of
+    kept elements; without it the mask is drawn as ``uniform < 1 − p`` from
+    ``generator``, a ``torch.Generator`` on ``data``'s device, the JAX
+    op's ``bernoulli(key, 1 − p)``.  The global random state is never used:
+    with neither, training raises.  The scale is a tensor division, one
+    rounding, as the JAX op's (CUDA's division by a host scalar multiplies
+    by its reciprocal)."""
+    if not training or p == 0.0:
+        return data
+    shape = list(data.shape)
+    for ax in axes or ():
+        shape[ax] = 1
+    if keep is None:
+        if generator is None:
+            raise ValueError("Dropout in training needs a keep mask or a "
+                             "torch.Generator; the global random state is not used")
+        keep = torch.rand(shape, generator=generator, device=data.device) < 1.0 - p
+    elif keep.dtype != torch.bool or list(keep.shape) != shape:
+        raise ValueError("Dropout: keep must be bool %s, got %s %s"
+                         % (tuple(shape), keep.dtype, tuple(keep.shape)))
+    scale = torch.full((), 1.0 - p, dtype=data.dtype, device=data.device)
+    return torch.where(keep, data / scale, torch.zeros((), dtype=data.dtype,
+                                                       device=data.device))
 
 
 def softmax(data, *, axis=-1):

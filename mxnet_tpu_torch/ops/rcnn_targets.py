@@ -8,10 +8,13 @@ The noise is an input, never drawn here.  The JAX package's ``vmap`` over
 images is the leading batch dimension here.  Comparisons and selections are
 made in the JAX formulas' operation order, so that the IoU thresholds fall
 the same way on both sides.  The thresholds are the reference config's
-(rcnn/config.py), which the R-FCN path never changes; the R-CNN targets are
-class-agnostic (R-FCN regresses one box per roi).
+(rcnn/config.py), which neither detector changes.  The R-CNN targets are
+class-specific (Faster R-CNN regresses a box per class) or class-agnostic
+(R-FCN regresses one box per roi).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,6 +26,13 @@ __all__ = ["rpn_anchor_target", "proposal_target"]
 RPN_POS_IOU = 0.7   # an anchor at or above it is foreground
 RPN_NEG_IOU = 0.3   # below it, background
 FG_OVERLAP = 0.5    # a roi at or above it is foreground, below it background
+
+
+@functools.lru_cache(maxsize=16)
+def _constant(values, dtype, device):
+    """``values`` as a tensor on ``device``, copied once per value: a copy
+    from host memory synchronises the stream.  Callers only read it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _iou_plus_one(a, b):
@@ -133,20 +143,24 @@ def rpn_anchor_target(gt_boxes, im_info, noise, *, feat_height, feat_width,
     return label, tgt * w, w.expand(B, total, 4)
 
 
-def proposal_target(rois, gt_boxes, noise, *, batch_images, batch_rois=128,
-                    fg_fraction=0.25):
-    """Per-roi training targets, class-agnostic (``mxnet_tpu/ops/
-    rcnn_targets.py proposal_target`` with ``class_agnostic=True``;
-    reference rcnn/symbol/proposal_target.py).
+def proposal_target(rois, gt_boxes, noise, *, num_classes, batch_images,
+                    batch_rois=128, fg_fraction=0.25, class_agnostic=False,
+                    box_stds=None):
+    """Per-roi training targets (``mxnet_tpu/ops/rcnn_targets.py
+    proposal_target``; reference rcnn/symbol/proposal_target.py).
 
     rois (B·post, 5) batch-major; gt_boxes (B, G, 5) padded with −1; noise
     (B, post + G, 2).  The gt boxes join the candidates.  Returns rois
     (batch_rois, 5), label (batch_rois,) (0 background, else the gt class
-    + 1), bbox_target and bbox_weight (batch_rois, 8): the background and
-    foreground slots of the two-class box regression.  An image short of
+    + 1), bbox_target and bbox_weight (batch_rois, 4·K): the box slot of
+    the roi's class among K = ``num_classes`` (background included), or
+    K = 2 with ``class_agnostic`` (background and foreground, the R-FCN
+    head's two-class regression).  ``box_stds`` (4 floats) divides the
+    targets (the reference's normalised targets).  An image short of
     background cycles its sampled candidates, each with its own label.
     """
     B = int(batch_images)
+    K = 2 if class_agnostic else int(num_classes)
     per_im = int(batch_rois) // B
     if per_im * B != int(batch_rois):
         raise ValueError("batch_rois (%d) must be divisible by batch_images (%d)"
@@ -192,12 +206,14 @@ def proposal_target(rois, gt_boxes, noise, *, batch_images, batch_rois=128,
     label = torch.where(is_fg, matched[..., 0] + 1.0, 0.0)
 
     tgt = _bbox_transform(sel[..., 1:5], matched[..., 1:5])            # (B, per_im, 4)
-    # the box slot of class min(label, 1); a compare, not F.one_hot, whose
-    # range check synchronises the stream
-    kcls = torch.clamp(label, max=1.0).to(torch.int64)
-    onehot = (kcls[..., None] == torch.arange(2, device=dev)).to(rois.dtype)
-    w = is_fg[..., None, None] * onehot[..., None]                     # (B, per_im, 2, 1)
-    bbox_target = (w * tgt[..., None, :]).reshape(B * per_im, 8)
-    bbox_weight = w.expand(B, per_im, 2, 4).reshape(B * per_im, 8)
+    if box_stds is not None:
+        tgt = tgt / _constant(tuple(box_stds), tgt.dtype, dev)
+    # the box slot of the roi's class (of min(label, 1) class-agnostic); a
+    # compare, not F.one_hot, whose range check synchronises the stream
+    kcls = (torch.clamp(label, max=1.0) if class_agnostic else label).to(torch.int64)
+    onehot = (kcls[..., None] == torch.arange(K, device=dev)).to(rois.dtype)
+    w = is_fg[..., None, None] * onehot[..., None]                     # (B, per_im, K, 1)
+    bbox_target = (w * tgt[..., None, :]).reshape(B * per_im, 4 * K)
+    bbox_weight = w.expand(B, per_im, K, 4).reshape(B * per_im, 4 * K)
     return (sel.reshape(B * per_im, 5), label.reshape(B * per_im),
             bbox_target, bbox_weight)

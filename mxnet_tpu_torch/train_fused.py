@@ -6,7 +6,8 @@ the four losses in the JAX step's order, the backward through the port's
 CUDA kernels, and momentum SGD with the JAX step's semantics.  PyTorch runs
 it eagerly; the noise that drives the target subsampling is an input of the
 step, drawn by the caller (``run_bench`` draws it from a ``torch.Generator``
-on the device).
+on the device).  The step's machinery (the losses, the bf16 cast, the SGD)
+is shared with the Faster R-CNN step of ``train_frcnn.py``.
 
     python -m mxnet_tpu_torch.train_fused --device cpu        # tiny config
     python -m mxnet_tpu_torch.train_fused --resnet101 --bench  # on the card
@@ -25,8 +26,8 @@ from .gluon.model_zoo.detection import DeformableRFCN, rfcn_resnet101
 from .ops import elemwise
 from .ops import nn as ops_nn
 
-__all__ = ["synthetic_coco", "noise_shapes", "make_rfcn_train_step",
-           "build_net", "run_bench"]
+__all__ = ["synthetic_coco", "noise_shapes", "rpn_losses", "rcnn_losses",
+           "detection_train_step", "make_rfcn_train_step", "build_net", "run_bench"]
 
 
 def synthetic_coco(rng, batch, image_shape, classes, max_gts):
@@ -69,6 +70,105 @@ def _dtype(dtype):
     return getattr(torch, str(dtype))
 
 
+def rpn_losses(net, batch, rpn_cls, rpn_bbox, rpn_label, rpn_bt, rpn_bw):
+    """The RPN's two losses, as both detectors' JAX steps compute them
+    (``examples/deformable_rfcn/train_fused.py:142-150``,
+    ``examples/rcnn/train_fused.py:98-107``): softmax cross-entropy over the
+    sampled anchors (label ≥ 0) and smooth-L1 (σ 3) over ``rpn_batch ·
+    batch``.  Anchor order h·(W·A) + w·A + a, as the targets and
+    MultiProposal.  -> (cls_loss, bbox_loss)."""
+    Hf, Wf = net.feat_shape
+    A = net.num_anchors
+    a_total = Hf * Wf * A
+    logits = rpn_cls.reshape(batch, 2, A, Hf, Wf).permute(0, 3, 4, 2, 1)
+    logits = logits.reshape(batch, a_total, 2)
+    valid = rpn_label >= 0
+    lab = torch.clamp(rpn_label, min=0.0).to(torch.int64)
+    logp = ops_nn.log_softmax(logits, axis=-1)
+    ce = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    cls_loss = torch.where(valid, ce, 0.0).sum() / torch.clamp(valid.sum(), min=1)
+    bp = rpn_bbox.reshape(batch, A, 4, Hf, Wf).permute(0, 3, 4, 1, 2)
+    bp = bp.reshape(batch, a_total, 4)
+    bbox_loss = _smooth_l1(bp, rpn_bt, rpn_bw, 3.0).sum() / (net.rpn_batch * batch)
+    return cls_loss, bbox_loss
+
+
+def rcnn_losses(label, cls_score, bbox_pred, bbox_target, bbox_weight):
+    """The R-CNN head's two losses: softmax cross-entropy over the sampled
+    rois and smooth-L1 (σ 1) of the box deltas over the roi count, the
+    deltas one box per roi (R-FCN, class-agnostic) or one per class (Faster
+    R-CNN): the weights select the roi's own slot.  -> (cls_loss,
+    bbox_loss)."""
+    logp = ops_nn.log_softmax(cls_score, axis=-1)
+    cls_loss = -torch.gather(logp, 1, label.to(torch.int64)[:, None]).mean()
+    bbox_loss = _smooth_l1(bbox_pred, bbox_target, bbox_weight, 1.0).sum() / label.shape[0]
+    return cls_loss, bbox_loss
+
+
+def detection_train_step(net, batch, learning_rate, momentum, compute_dtype):
+    """-> ``run(data, im_info, gt, randoms, lr) -> (loss, parts)``: the
+    train step that Deformable R-FCN (``make_rfcn_train_step``) and Faster
+    R-CNN (``train_frcnn.make_frcnn_train_step``) share.  ``randoms`` are
+    the model's random inputs after ``gt`` (the targets' noise, and Faster
+    R-CNN's dropout masks), passed to the training forward as they are;
+    see :func:`make_rfcn_train_step` for the rest.  ``run.params``,
+    ``run.momentum`` and ``run.compute_dtype`` as ``step``'s."""
+    cdtype = _dtype(compute_dtype)
+    named = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    moms = [torch.zeros_like(p) for p in params]
+
+    def forward(data, im_info, gt, randoms):
+        if cdtype is None:
+            return net(data, im_info, gt, *randoms)
+        cast = {n: p.to(cdtype) for n, p in named}
+        outs = torch.func.functional_call(
+            net, cast, (data.to(cdtype), im_info, gt, *randoms))
+        return [o.to(torch.float32) for o in outs]
+
+    def losses(data, im_info, gt, randoms):
+        (rpn_cls, rpn_bbox, rpn_label, rpn_bt, rpn_bw, _rois, label,
+         bbox_target, bbox_weight, cls_score, bbox_pred) = forward(
+            data, im_info, gt, randoms)
+        parts = torch.stack(rpn_losses(net, batch, rpn_cls, rpn_bbox, rpn_label,
+                                       rpn_bt, rpn_bw)
+                            + rcnn_losses(label, cls_score, bbox_pred, bbox_target,
+                                          bbox_weight))
+        return parts[0] + parts[1] + parts[2] + parts[3], parts
+
+    @torch.no_grad()
+    def sgd(lr):
+        # multi-tensor updates: a few launches per step, not a few per tensor;
+        # a parameter without a gradient keeps m = 0 and so stays as it is
+        torch._foreach_mul_(moms, momentum)
+        fed = [i for i, p in enumerate(params) if p.grad is not None]
+        torch._foreach_add_([moms[i] for i in fed], [params[i].grad for i in fed])
+        torch._foreach_sub_(params, torch._foreach_mul(moms, lr))
+
+    def run(data, im_info, gt, randoms, lr):
+        if data.shape[0] != batch:
+            raise ValueError("this step was made for batch %d, got %d"
+                             % (batch, data.shape[0]))
+        for p in params:
+            p.grad = None
+        was_training = net.training
+        net.train()
+        try:
+            # the backward in full fp32 too: cuDNN would take TF32 by default
+            with full_fp32():
+                loss, parts = losses(data, im_info, gt, randoms)
+                loss.backward()
+        finally:
+            net.train(was_training)
+        sgd(lr)
+        return loss.detach(), parts.detach()
+
+    run.params = params
+    run.momentum = moms
+    run.compute_dtype = cdtype
+    return run
+
+
 def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9,
                          compute_dtype=None):
     """-> ``step(data, im_info, gt, nz_rpn, nz_prop, lr=learning_rate) ->
@@ -76,8 +176,9 @@ def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9,
 
     The losses are the JAX step's (train_fused.py:142-165), in its order:
     RPN softmax cross-entropy over the sampled anchors, RPN smooth-L1 (σ 3)
-    over ``rpn_batch · batch``, R-CNN cross-entropy and class-agnostic
-    smooth-L1 (σ 1) over the sampled rois.  ``parts`` stacks the four.
+    over ``rpn_batch · batch`` (:func:`rpn_losses`), R-CNN cross-entropy and
+    class-agnostic smooth-L1 (σ 1) over the sampled rois
+    (:func:`rcnn_losses`).  ``parts`` stacks the four.
     SGD: ``m = momentum·m + g; p = p − lr·m`` with m starting at 0, as the
     JAX step computes it; ``lr`` is a per-step float.  A parameter that gets
     no gradient (conv1 and res2) counts a zero gradient.  The net runs in
@@ -101,79 +202,14 @@ def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9,
     losses; gradients and momentum are fp32.  cuBLAS's reduced-precision
     bf16 reductions are off inside the step, as TF32 is.
     """
-    Hf, Wf = net.feat_shape
-    A = net.num_anchors
-    a_total = Hf * Wf * A
-    cdtype = _dtype(compute_dtype)
-    named = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
-    params = [p for _, p in named]
-    moms = [torch.zeros_like(p) for p in params]
-
-    def forward(data, im_info, gt, nz_rpn, nz_prop):
-        if cdtype is None:
-            return net(data, im_info, gt, nz_rpn, nz_prop)
-        cast = {n: p.to(cdtype) for n, p in named}
-        outs = torch.func.functional_call(
-            net, cast, (data.to(cdtype), im_info, gt, nz_rpn, nz_prop))
-        return [o.to(torch.float32) for o in outs]
-
-    def losses(data, im_info, gt, nz_rpn, nz_prop):
-        (rpn_cls, rpn_bbox, rpn_label, rpn_bt, rpn_bw, _rois, label,
-         bbox_target, bbox_weight, cls_score, bbox_pred) = forward(
-            data, im_info, gt, nz_rpn, nz_prop)
-        # anchor order h·(W·A) + w·A + a, as the targets and MultiProposal
-        logits = rpn_cls.reshape(batch, 2, A, Hf, Wf).permute(0, 3, 4, 2, 1)
-        logits = logits.reshape(batch, a_total, 2)
-        valid = rpn_label >= 0
-        lab = torch.clamp(rpn_label, min=0.0).to(torch.int64)
-        logp = ops_nn.log_softmax(logits, axis=-1)
-        ce = -torch.gather(logp, -1, lab[..., None])[..., 0]
-        rpn_cls_loss = (torch.where(valid, ce, 0.0).sum()
-                        / torch.clamp(valid.sum(), min=1))
-        bp = rpn_bbox.reshape(batch, A, 4, Hf, Wf).permute(0, 3, 4, 1, 2)
-        bp = bp.reshape(batch, a_total, 4)
-        rpn_bbox_loss = _smooth_l1(bp, rpn_bt, rpn_bw, 3.0).sum() / (
-            net.rpn_batch * batch)
-        logp2 = ops_nn.log_softmax(cls_score, axis=-1)
-        rcnn_cls_loss = -torch.gather(
-            logp2, 1, label.to(torch.int64)[:, None]).mean()
-        rcnn_bbox_loss = _smooth_l1(bbox_pred, bbox_target, bbox_weight,
-                                    1.0).sum() / label.shape[0]
-        total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
-        parts = torch.stack([rpn_cls_loss, rpn_bbox_loss, rcnn_cls_loss,
-                             rcnn_bbox_loss])
-        return total, parts
-
-    @torch.no_grad()
-    def sgd(lr):
-        # multi-tensor updates: a few launches per step, not a few per tensor;
-        # a parameter without a gradient keeps m = 0 and so stays as it is
-        torch._foreach_mul_(moms, momentum)
-        fed = [i for i, p in enumerate(params) if p.grad is not None]
-        torch._foreach_add_([moms[i] for i in fed], [params[i].grad for i in fed])
-        torch._foreach_sub_(params, torch._foreach_mul(moms, lr))
+    run = detection_train_step(net, batch, learning_rate, momentum, compute_dtype)
 
     def step(data, im_info, gt, nz_rpn, nz_prop, lr=learning_rate):
-        if data.shape[0] != batch:
-            raise ValueError("this step was made for batch %d, got %d"
-                             % (batch, data.shape[0]))
-        for p in params:
-            p.grad = None
-        was_training = net.training
-        net.train()
-        try:
-            # the backward in full fp32 too: cuDNN would take TF32 by default
-            with full_fp32():
-                loss, parts = losses(data, im_info, gt, nz_rpn, nz_prop)
-                loss.backward()
-        finally:
-            net.train(was_training)
-        sgd(lr)
-        return loss.detach(), parts.detach()
+        return run(data, im_info, gt, (nz_rpn, nz_prop), lr)
 
-    step.params = params
-    step.momentum = moms
-    step.compute_dtype = cdtype
+    step.params = run.params
+    step.momentum = run.momentum
+    step.compute_dtype = run.compute_dtype
     return step
 
 

@@ -784,3 +784,78 @@ def test_narrow_resnet_step_card_against_cpu(cuda, dtype):
         tol = 5e-2 if bf16 else 1e-5
         torch.testing.assert_close(s_got[name], ref, rtol=tol, atol=tol * float(ref.abs().max()),
                                    msg=lambda msg, n=name: "%s: %s" % (n, msg))
+
+
+# the tiny Faster R-CNN's seed and RPN score weights' gain: at these its CPU
+# run's 144 foreground scores of each image lie at least 4.6e-5 apart, far
+# above the two devices' rounding differences
+FRCNN_SEED, FRCNN_RPN_GAIN = 42, 2.0
+
+
+def test_tiny_faster_rcnn_card_against_cpu(cuda):
+    """The tiny FasterRCNN (64x96, batch 2) on the card against the CPU from
+    the same weights: the serve forward, then one fp32 train step with the
+    same noise and dropout masks (loss parts, the conv3 and fc6 gradients);
+    NMS launched once a forward and once a step, no other kernel."""
+    from mxnet_tpu_torch import train_frcnn
+    from mxnet_tpu_torch.gluon.model_zoo import FasterRCNN
+
+    cfg = dict(classes=3, image_shape=(64, 96), rpn_pre_nms=200, rpn_post_nms=32,
+               **train_frcnn.TINY)
+    gen = torch.Generator().manual_seed(FRCNN_SEED)
+    cpu = FasterRCNN(device="cpu", generator=gen, **cfg)
+    with torch.no_grad():
+        cpu.rpn_cls.weight.mul_(FRCNN_RPN_GAIN)
+    gpu = FasterRCNN(device=cuda, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(FRCNN_SEED)
+    batch = [torch.from_numpy(a) for a in train_frcnn.synthetic_coco(rng, 2, (64, 96), 3, 8)]
+    rnd = train_frcnn.draw_randoms(cpu, 2, gen, "cpu")
+    res = []
+    for net, d in ((cpu, "cpu"), (gpu, cuda)):
+        kernels.reset_launches()
+        serve = [t.cpu() for t in net(*(t.to(d) for t in batch[:2]))]
+        step = train_frcnn.make_frcnn_train_step(net, 2)
+        _, parts = step(*(t.to(d) for t in batch + rnd))
+        launches = {n: k.wrapper.launches for n, k in kernels.KERNELS.items()}
+        named = net.gluon_named_tensors()
+        res.append((serve, parts.cpu(), named["conv3_conv2d0_weight"].grad.cpu(),
+                    named["fc6_weight"].grad.cpu(), launches))
+    (s_ref, p_ref, g3_ref, g6_ref, _), (s_got, p_got, g3_got, g6_got, launches) = res
+    assert launches == {n: 2 if n == "nms_alive" else 0 for n in kernels.KERNELS}
+    torch.testing.assert_close(s_got[0], s_ref[0], rtol=0, atol=1e-3)   # rois
+    torch.testing.assert_close(s_got[1], s_ref[1], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s_got[2], s_ref[2], rtol=1e-4,
+                               atol=1e-4 * float(s_ref[2].abs().max()))
+    # four fp32 means over the same selection, summed in another order
+    torch.testing.assert_close(p_got, p_ref, rtol=1e-4, atol=1e-5)
+    for got, ref in ((g3_got, g3_ref), (g6_got, g6_ref)):
+        assert float(ref.abs().max()) > 0
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_roi_pooling_card_against_cpu(cuda):
+    """ROIPooling at the VGG16 map's width (512 channels, 38x64, 7x7 bins),
+    grouped, fp32 and bf16: values equal (a max picks an element), input
+    gradients within fp32 rounding of the same shares."""
+    from mxnet_tpu_torch.ops import detection as ops_det
+
+    rng = np.random.RandomState(10)
+    data = torch.from_numpy(rng.randint(0, 8, (2, 512, 38, 64)).astype(np.float32))
+    xy = rng.uniform(-40, 1000, (2 * 20, 2)).astype(np.float32)
+    wh = rng.uniform(8, 500, (2 * 20, 2)).astype(np.float32)
+    rois = torch.from_numpy(np.concatenate(
+        [np.repeat(np.arange(2, dtype=np.float32), 20)[:, None], xy, xy + wh], 1))
+    cot = torch.from_numpy(rng.randn(40, 512, 7, 7).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        res = []
+        for d in ("cpu", cuda):
+            x = data.to(d, dtype).detach().requires_grad_()
+            out = ops_det.roi_pooling(x, rois.to(d), pooled_size=7, spatial_scale=1 / 16,
+                                      rois_per_image=20)
+            (out.float() * cot.to(d)).sum().backward()
+            res.append((out.detach().cpu(), x.grad.float().cpu()))
+        (o_ref, g_ref), (o_got, g_got) = res
+        assert torch.equal(o_got, o_ref)
+        tol = 1e-6 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(g_got, g_ref, rtol=tol, atol=tol * float(g_ref.abs().max()))

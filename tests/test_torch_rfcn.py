@@ -20,7 +20,9 @@ from mxnet_tpu import nd
 from mxnet_tpu.gluon.model_zoo.detection import DeformableRFCN as JaxRFCN
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo import (DeformableConv2D, DeformableRFCN,
+                                             FasterRCNN, faster_rcnn_vgg16,
                                              load_jax_params, rfcn_resnet101)
+from mxnet_tpu_torch.train_frcnn import TINY as TINY_FRCNN
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -199,8 +201,11 @@ def _quantize_model(**kw):
     _quantize_model,
     _gluon(lambda **kw: tnn.Dense(4, in_units=3, **kw)),
     _gluon(lambda **kw: resnet18_v1(classes=10, **kw)),
+    _gluon(lambda **kw: faster_rcnn_vgg16(classes=3, image_shape=(64, 96), **kw)),
+    _gluon(lambda **kw: FasterRCNN(classes=3, image_shape=(64, 96), **TINY_FRCNN, **kw)),
 ], ids=["rfcn_resnet101", "DeformableRFCN", "Conv2D", "BatchNorm",
-        "DeformableConv2D", "simple_bind", "quantize_model", "Dense", "resnet18_v1"])
+        "DeformableConv2D", "simple_bind", "quantize_model", "Dense", "resnet18_v1",
+        "faster_rcnn_vgg16", "FasterRCNN"])
 def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -261,7 +266,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 port / "models" / "resnet_symbol.py",
                 port / "gluon" / "functional.py", port / "gluon" / "loss.py",
                 port / "gluon" / "model_zoo" / "vision" / "__init__.py",
-                port / "gluon" / "model_zoo" / "vision" / "resnet.py"):
+                port / "gluon" / "model_zoo" / "vision" / "resnet.py",
+                port / "train_frcnn.py", port / "gluon" / "model_zoo" / "detection.py",
+                port / "gluon" / "nn" / "basic_layers.py"):
         assert new in files
     for f in files:
         for mod in _imports(f):

@@ -165,7 +165,8 @@ def test_anchor_and_proposal_targets_match(seed):
     kw2 = dict(batch_images=B, batch_rois=2 * 16, fg_fraction=0.25)
     ref2 = jax.jit(functools.partial(jtargets.proposal_target, num_classes=4,
                                      class_agnostic=True, **kw2))(rois, gt, nz_prop)
-    got2 = ttargets.proposal_target(*map(_t, (rois, gt, nz_prop)), **kw2)
+    got2 = ttargets.proposal_target(*map(_t, (rois, gt, nz_prop)), num_classes=4,
+                                    class_agnostic=True, **kw2)
     label, bt, bw = (np.asarray(a) for a in ref)
     assert (label == 1).any() and (label == 0).any() and (label == -1).any()
     # the selection is exact: labels, weights and the sampled rois are equal;
