@@ -64,7 +64,24 @@ Phases, in order; any failure exits non-zero:
    Each path prints its ms, img/s, peak memory, device profile (kernels,
    busy, idle share, groups) and ROIPooling's device ms and peak bytes on
    its own inputs; the kernels phase holds NMS bit for bit against its
-   plain version at N = 12,000 and times it;
+   plain version at N = 12,000 and times it.  Then the serve model is cast
+   to bf16 (``cast("bfloat16")``) and serves
+   three single-image requests and one batch of two, each answer checked
+   (rois fp32, cls_prob and bbox_pred bf16) with one NMS launch a request,
+   with its ms, device profile and ROIPooling cost;
+8b. module: bench.py's ``MXNET_BENCH=module`` (the MLP 128-256-256-10 with
+   SoftmaxOutput through ``Module``, batch 64, sgd lr 0.05 momentum 0.9:
+   one warm-up and 50 timed ``forward_backward`` + ``update``; samples/s,
+   ms a step, one profiled step, the cross-entropy of the warm-up and the
+   last step on the fixed batch, which must fall), then train_cifar10.py's
+   defaults through ``Module.fit`` (ResNet-110 on 3x28x28, batch 128, sgd
+   lr 0.05 momentum 0.9 wd 1e-4, Xavier(gaussian, in, 2), a
+   MultiFactorScheduler, "acc" and a Speedometer; seeded N(0, 1) images,
+   one epoch of 8 batches, then ``score`` on 2): every loss finite, every
+   moving statistic and weight moved, the fix_gamma gamma moved by weight
+   decay alone with a zero gradient; ms a step, img/s, peak memory and one
+   profiled step.  One step of each path runs under
+   ``set_sync_debug_mode("error")``, and neither launches a ported kernel;
 9. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
    with the same weights and the same noise, with frozen BatchNorm and with
@@ -72,7 +89,9 @@ Phases, in order; any failure exits non-zero:
    in fp32 and bf16; the R-FCN stages in bf16; the CIFAR ResNet-8 int8
    symbol with the same weights and calibration table on both devices; and
    the tiny Faster R-CNN stage by stage, end to end and over one train step
-   with the same weights, noise and dropout masks.
+   with the same weights, noise and dropout masks; one Module step of the
+   CIFAR ResNet-8 from the same weights (loss, two weights' updates, a
+   moving variance).
 
 Each phase prints its seconds, and the run its total, before the last two
 lines.
@@ -85,12 +104,13 @@ masters, momentum and BatchNorm statistics; 2 warm-up steps, the second
 recording the backward kernels' inputs, and 3 timed steps at batch 1), each
 with its launch counts checked per request or step; phase 5 then holds the
 four bf16 kernel instances against their plain versions on the bf16 path's
-calls, each bf16 output within one bf16 ulp.  Phase 5 runs after phase 8.
+calls, each bf16 output within one bf16 ulp.  Phase 5 runs after phase 8b.
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -142,6 +162,23 @@ FRCNN_LR = 1e-3
 FRCNN_TIMED, FRCNN_TIMED_BF16 = 5, 3
 # the tiny Faster R-CNN's tie-free seed and RPN score weights' gain
 SMALL_FRCNN_SEED, SMALL_FRCNN_RPN_GAIN = 42, 2.0
+FRCNN_SERVE_BF16_REQUESTS = 3
+# bench.py MXNET_BENCH=module (main_module): the MLP fc1 128->256, relu, fc2
+# 256->256, relu, fc3 256->10, SoftmaxOutput through Module, batch 64, sgd
+# lr 0.05 momentum 0.9 (rescale_grad 1/64 by default), Module's default
+# Uniform(0.01) weights, N(0, 1) data and labels < 10 from RandomState(0);
+# one warm-up step, then 50 timed forward_backward + update
+MODULE_BATCH, MODULE_ITERS = 64, 50
+# train_cifar10.py's defaults (common/fit.py): resnet, 110 layers, 3x28x28,
+# 10 classes, batch 128, sgd lr 0.05 momentum 0.9 wd 1e-4,
+# Xavier(gaussian, in, 2), lr x0.1 at lr_step_epochs 200 and 250 of
+# 50,000 / 128 = 390 updates an epoch, eval_metric "acc", a Speedometer.
+# The CIFAR-10 .rec files are not in the repository: seeded N(0, 1) images
+# and labels < 10, one epoch of 8 batches, then score on 2
+CIFAR = dict(num_classes=10, num_layers=110, image_shape="3,28,28")
+CIFAR_BATCH, CIFAR_BATCHES, CIFAR_SCORE_BATCHES = 128, 8, 2
+CIFAR_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
+CIFAR_EPOCH_UPDATES, CIFAR_LR_STEP_EPOCHS, CIFAR_LR_FACTOR = 50000 // 128, (200, 250), 0.1
 
 
 def fail(msg):
@@ -204,7 +241,7 @@ def check_answer(net, out, im_info, dtype=torch.float32, box_cols=8):
     """Shapes, dtypes (rois fp32; cls_prob and bbox_pred in the model's
     ``dtype``), finite values, probabilities and roi corners; bbox_pred has
     ``box_cols`` columns (8 for R-FCN's two-class boxes, 4·(classes + 1)
-    for Faster R-CNN's)."""
+    for Faster R-CNN's).  A bf16 probability row sums to 1 within 2^-7."""
     rois, prob, bbox = out
     B = im_info.shape[0]
     R = B * net.rpn_post_nms
@@ -215,10 +252,11 @@ def check_answer(net, out, im_info, dtype=torch.float32, box_cols=8):
             fail("%s is %s %s, expected %s %s" % (name, t.dtype, tuple(t.shape), dt, shape))
         if not bool(torch.isfinite(t).all()):
             fail("%s has non-finite values" % name)
-    # each bf16 probability is rounded once from the fp32 softmax: the row
-    # sums to 1 within 2^-9
+    # the bf16 softmax rounds as the JAX op does: its fp32 sum rounded to
+    # bf16 (at most 2^-8 relative) and each quotient rounded (at most 2^-8
+    # of p): the row sums to 1 within 2^-7
     err = float((prob.float().sum(-1) - 1).abs().max())
-    if err > (1e-5 if dtype == torch.float32 else 2.0 ** -9):
+    if err > (1e-5 if dtype == torch.float32 else 2.0 ** -7):
         fail("cls_prob rows sum to 1 only within %g" % err)
     info = im_info.repeat_interleave(net.rpn_post_nms, 0)
     if not torch.equal(rois[:, 0], torch.arange(B, device=rois.device)
@@ -1603,6 +1641,75 @@ def phase_frcnn_train(kernels, serve_net, dev, card):
     return launches, launches_bf16, nms, {"float32": fp32, "bfloat16": bf16}
 
 
+def phase_frcnn_serve_bf16(kernels, net, dev, card):
+    """Faster R-CNN VGG16 served after ``cast("bfloat16")`` (the serve
+    model's weights, cast in place): FRCNN_SERVE_BF16_REQUESTS single-image
+    requests and one batch of two, each answer checked as the fp32 stage's
+    (rois fp32; cls_prob and bbox_pred bf16) and one NMS launch a request;
+    ms, busy, idle share and kernels."""
+    bf = torch.bfloat16
+    net.cast("bfloat16")
+    if any(t.dtype != bf for t in net.state_dict().values()):
+        fail("frcnn serve bf16: cast left a parameter or buffer outside bf16")
+    gen = torch.Generator().manual_seed(SEED + 44)
+    expect = frcnn_expect(kernels)
+    H, W = net.image_shape
+    requests = [[[H, W, 1.0]]] * FRCNN_SERVE_BF16_REQUESTS + \
+        [[[H, W, 1.0], [H - 32, W - 64, 1.0]]]
+
+    def request(infos):
+        data, im_info = make_request(gen, infos, (H, W), dev)
+        return data.to(bf), im_info
+
+    for infos in (requests[0], requests[-1]):  # cuDNN and allocator set-up
+        net(*request(infos))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for i, infos in enumerate(requests):
+        data, im_info = request(infos)
+        before = counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net(data, im_info)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_answer(net, out, im_info, bf, box_cols=4 * (net.classes + 1))
+        got = {n: c - before[n] for n, c in counts(kernels).items()}
+        if got != expect:
+            fail("frcnn bf16 forward launched %s, expected %s" % (got, expect))
+        if len(infos) == 1:
+            times.append(ms)
+        say("frcnn bf16 request %d: batch %d, %.2f ms, %d rois, mean top score %.4f" % (
+            i + 1, len(infos), ms, out[0].shape[0],
+            float(out[1][:, 1:].float().max(1).values.mean())))
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    data, im_info = request(requests[0])
+    prof = device_profile(lambda: net(data, im_info), reps=3, top=8)
+    roi = roi_pooling_cost(capture_roi_pooling(lambda: net(data, im_info))[0], train=False)
+    res = report_path("frcnn serve bf16 (batch 1)", card, times, 1, peak, prof, roi)
+    say("frcnn serve bf16 launches (%d requests): %s" % (len(requests), json.dumps(launches)))
+    return launches, res
+
+
+def device_ops(run, tries=3):
+    """The names of the device operations of one ``run()``, from the
+    profiler.  A profile that recorded no device operation at all is taken
+    again, up to ``tries`` times: the profiler has returned an empty
+    profile for a call whose kernels ran."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ops = sorted({e.key for e in prof.key_averages()
+                      if float(getattr(e, "self_device_time_total", 0) or 0) > 0})
+        if ops:
+            break
+    return ops
+
+
 def nms_at_train_size(kernels, calls):
     """NMS on the Faster R-CNN train step's own call (N = 12,000, 188
     words): bit for bit against the plain version, the kernel's device time
@@ -1619,11 +1726,7 @@ def nms_at_train_size(kernels, calls):
     ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
     plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
     bound_ms, bound_by = bound(*work("nms_alive", args, k.wrapper(*args, **kw)))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        k.wrapper(*args, **kw)
-        torch.cuda.synchronize()
-    ops = sorted({e.key for e in prof.key_averages()
-                  if float(getattr(e, "self_device_time_total", 0) or 0) > 0})
+    ops = device_ops(lambda: k.wrapper(*args, **kw))
     if not any("nms_scan_kernel" in o and "global" not in o for o in ops):
         fail("nms at N=%d did not run the staged scan: %s" % (n, ops))
     say("kernel nms_alive at the frcnn train size: N %d, %d words, %.4f ms (plain %.4f ms), "
@@ -1696,6 +1799,234 @@ def phase_small_frcnn(dev):
         % (", ".join(n for n, *_ in stages), ", ".join("%.5f" % v for v in got_parts.tolist())))
 
 
+def module_mlp():
+    """bench.py main_module's symbol, on the port's frontend."""
+    from mxnet_tpu_torch import symbol as sym
+
+    data = sym.var("data")
+    h = sym.Activation(sym.FullyConnected(data, name="fc1", num_hidden=256), name="a1",
+                       act_type="relu")
+    h = sym.Activation(sym.FullyConnected(h, name="fc2", num_hidden=256), name="a2",
+                       act_type="relu")
+    return sym.SoftmaxOutput(sym.FullyConnected(h, name="fc3", num_hidden=10),
+                             name="softmax")
+
+
+def cross_entropy(mod, label):
+    """The mean cross-entropy of a Module's softmax output against
+    ``label`` (read to the host)."""
+    p = mod.get_outputs()[0]
+    pick = p.gather(1, label.long().reshape(-1, 1)).reshape(-1)
+    return float(-torch.log(pick).mean())
+
+
+def module_step(mod, batch):
+    mod.forward_backward(batch)
+    mod.update()
+
+
+def phase_module_mlp(kernels, dev, card):
+    """bench.py MXNET_BENCH=module on the card: see MODULE_BATCH.  The
+    cross-entropy on the fixed batch must fall from the warm-up step to the
+    last; no ported kernel launches; one step makes no host
+    synchronisation.  -> (launch counts, report)."""
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.module import Module
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(MODULE_BATCH, 128).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 10, (MODULE_BATCH,)).astype(np.float32)).to(dev)
+    batch = DataBatch([x], [y])
+    kernels.reset_launches()
+    mod = Module(module_mlp(), device=dev)
+    mod.bind(data_shapes=[("data", (MODULE_BATCH, 128))],
+             label_shapes=[("softmax_label", (MODULE_BATCH,))])
+    mod.init_params()
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
+    if mod._optimizer.rescale_grad != 1.0 / MODULE_BATCH:
+        fail("module mlp: rescale_grad %g" % mod._optimizer.rescale_grad)
+    module_step(mod, batch)  # warm-up
+    first = cross_entropy(mod, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MODULE_ITERS):
+        module_step(mod, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    last = cross_entropy(mod, y)
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        fail("module mlp: cross-entropy %.5f -> %.5f did not fall" % (first, last))
+    no_host_sync(lambda: module_step(mod, batch), "a module mlp forward_backward + update")
+    prof = device_profile(lambda: module_step(mod, batch), reps=1, top=6)
+    launches = counts(kernels)
+    if any(launches.values()):
+        fail("the module mlp path launched %s" % launches)
+    ms = seconds / MODULE_ITERS * 1e3
+    res = dict(step_ms=ms, samples_per_s=MODULE_BATCH / seconds * MODULE_ITERS,
+               first_cross_entropy=first, last_cross_entropy=last, profile=prof)
+    say("module mlp (bench.py MXNET_BENCH=module) on %s: batch %d, %d timed steps, %.3f ms "
+        "a step, %.1f samples/s; cross-entropy %.5f (warm-up step) -> %.5f (step %d); %s "
+        "kernels a step, device busy %s ms, idle share %s" % (
+            card, MODULE_BATCH, MODULE_ITERS, ms, res["samples_per_s"], first, last,
+            MODULE_ITERS + 1, prof.get("kernels_per_call"), prof.get("device_busy_ms"),
+            prof.get("idle_share")))
+    say("module mlp device groups: %s" % json.dumps(prof))
+    return launches, res
+
+
+def fixed_gamma_trajectory(start, steps, lr, wd, momentum):
+    """A fix_gamma BatchNorm's gamma after ``steps`` SGD updates: its
+    gradient is 0, so only weight decay moves it, in ``SGD.update_multi``'s
+    order of operations."""
+    w, mom = start.clone(), torch.zeros_like(start)
+    for _ in range(steps):
+        g = torch.zeros_like(w) + w * wd
+        mom = mom * momentum - g * lr
+        w = w + mom
+    return w
+
+
+def phase_module_cifar(kernels, dev, card):
+    """train_cifar10.py's defaults through Module.fit on the card: see
+    CIFAR.  Every loss finite, every BatchNorm moving statistic and every
+    weight moved, the fix_gamma gamma with a zero gradient and moved by
+    weight decay alone; score on held-out batches; one step makes no host
+    synchronisation; no ported kernel launches.  -> (launch counts,
+    report)."""
+    from mxnet_tpu_torch.callback import Speedometer
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.lr_scheduler import MultiFactorScheduler
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+    from mxnet_tpu_torch.module import Module
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
+    n = CIFAR_BATCH * (CIFAR_BATCHES + CIFAR_SCORE_BATCHES)
+    rng = np.random.RandomState(SEED + 51)
+    shape = tuple(int(v) for v in CIFAR["image_shape"].split(","))
+    x = torch.from_numpy(rng.randn(n, *shape).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 10, (n,)).astype(np.float32)).to(dev)
+    m = CIFAR_BATCH * CIFAR_BATCHES
+    train = NDArrayIter(x[:m], y[:m], batch_size=CIFAR_BATCH)
+    held_out = NDArrayIter(x[m:], y[m:], batch_size=CIFAR_BATCH)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sym = get_symbol(**CIFAR)
+    mod = Module(sym, device=dev)
+    mod.bind(data_shapes=train.provide_data, label_shapes=train.provide_label)
+    init = Xavier(rnd_type="gaussian", factor_type="in", magnitude=2,
+                  generator=torch.Generator().manual_seed(SEED + 52))
+    mod.init_params(initializer=init)
+    arg0, aux0 = (({k: v.clone() for k, v in d.items()}) for d in mod.get_params())
+    say("module cifar: ResNet-%d, %s, %d classes, %.2f M parameters, %d BatchNorms, bound "
+        "and initialised in %.1f s" % (
+            CIFAR["num_layers"], CIFAR["image_shape"], CIFAR["num_classes"],
+            sum(v.numel() for v in arg0.values()) / 1e6, len(aux0) // 2,
+            time.perf_counter() - t0))
+    steps = [lr * CIFAR_EPOCH_UPDATES for lr in CIFAR_LR_STEP_EPOCHS]
+    optimizer_params = dict(CIFAR_SGD, lr_scheduler=MultiFactorScheduler(
+        step=steps, factor=CIFAR_LR_FACTOR))
+    marks, losses = [], []
+
+    def on_batch(param):  # the metric's read has synchronised the step
+        marks.append(time.perf_counter())
+        losses.append(cross_entropy(mod, param.locals["data_batch"].label[0]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric="acc", optimizer="sgd", optimizer_params=optimizer_params,
+            initializer=init, batch_end_callback=[Speedometer(CIFAR_BATCH, 4), on_batch],
+            num_epoch=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first_s = marks[0] - t0
+    times = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    score = dict(mod.score(held_out, "acc"))
+    if len(losses) != CIFAR_BATCHES or not all(math.isfinite(v) for v in losses):
+        fail("module cifar: losses %s" % losses)
+    arg1, aux1 = mod.get_params()
+    still = [k for k, v in aux1.items() if torch.equal(v, aux0[k])]
+    if still:
+        fail("module cifar: %d moving statistics did not move: %s" % (len(still), still[:3]))
+    still = [k for k, v in arg1.items() if k.endswith("_weight") and torch.equal(v, arg0[k])]
+    if still:
+        fail("module cifar: %d weights did not move: %s" % (len(still), still[:3]))
+    fixed = [node.name + "_gamma" for node in sym._walk()
+             if not node.is_var and node.op.name == "BatchNorm"
+             and node.attrs.get("fix_gamma", True)]
+    for k in fixed:
+        want = fixed_gamma_trajectory(arg0[k], CIFAR_BATCHES, CIFAR_SGD["learning_rate"],
+                                      CIFAR_SGD["wd"], CIFAR_SGD["momentum"])
+        if mod._exec.grad_dict[k].any():
+            fail("module cifar: fix_gamma %s got a gradient" % k)
+        torch.testing.assert_close(arg1[k], want, rtol=1e-6, atol=0,
+                                   msg=lambda m, k=k: "module cifar %s: %s" % (k, m))
+    batch = next(iter(train))
+    no_host_sync(lambda: module_step(mod, batch), "a module cifar forward_backward + update")
+    prof = device_profile(lambda: module_step(mod, batch), reps=1, top=8)
+    launches = counts(kernels)
+    if any(launches.values()):
+        fail("the module cifar path launched %s" % launches)
+    ms = statistics.median(times)
+    res = dict(step_ms=ms, steps_ms=times, img_per_s=CIFAR_BATCH / ms * 1e3,
+               first_step_s=first_s, losses=losses, score=score, peak_gib=peak, profile=prof)
+    say("module cifar (train_cifar10.py defaults, Module.fit) on %s: batch %d, first step "
+        "%.2f s, median %.2f ms a step (%s), %.1f img/s, peak memory %.2f GiB, losses %s, "
+        "held-out %s; %s kernels a step, device busy %s ms, idle share %s; fix_gamma "
+        "gammas %s: zero gradient, weight decay only" % (
+            card, CIFAR_BATCH, first_s, ms, ", ".join("%.2f" % t for t in times),
+            CIFAR_BATCH / ms * 1e3, peak, ", ".join("%.4f" % v for v in losses), score,
+            prof.get("kernels_per_call"), prof.get("device_busy_ms"),
+            prof.get("idle_share"), fixed))
+    say("module cifar device groups: %s" % json.dumps(prof))
+    return launches, res
+
+
+def phase_small_module(dev):
+    """One Module step of the CIFAR ResNet-8 (batch 4, 3x28x28) on the card
+    and on the CPU from the same carried-in weights (Xavier from a seeded
+    CPU generator) and batch: the loss, two weights' updates and a moving
+    variance within 1e-4."""
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+    from mxnet_tpu_torch.module import Module
+
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(SEED + 53)
+    x = torch.from_numpy(rng.randn(4, 3, 28, 28).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (4,)).astype(np.float32))
+    out, start = [], None
+    names = ("conv0_weight", "stage3_unit1_conv2_weight")
+    var = "stage2_unit1_bn1_moving_var"
+    for d in (cpu, dev):
+        mod = Module(get_symbol(10, 8, "3,28,28"), device=d)
+        mod.bind(data_shapes=[("data", (4, 3, 28, 28))], label_shapes=[("softmax_label", (4,))])
+        if start is None:
+            mod.init_params(Xavier(rnd_type="gaussian", factor_type="in", magnitude=2,
+                                   generator=torch.Generator().manual_seed(SEED + 53)))
+            start = tuple({k: v.clone() for k, v in p.items()} for p in mod.get_params())
+        else:
+            mod.init_params(arg_params=start[0], aux_params=start[1])
+        mod.init_optimizer(optimizer="sgd", optimizer_params=CIFAR_SGD)
+        mod.forward_backward(DataBatch([x.to(d)], [y.to(d)]))
+        mod.update()
+        arg, aux = mod.get_params()
+        out.append((cross_entropy(mod, y.to(d)), {k: arg[k].cpu() - start[0][k] for k in names},
+                    aux[var].cpu()))
+    (ref_loss, ref_upd, ref_var), (got_loss, got_upd, got_var) = out
+    if not math.isclose(got_loss, ref_loss, rel_tol=1e-4):
+        fail("small module: loss %.6f against %.6f" % (got_loss, ref_loss))
+    for k, r in ref_upd.items():
+        torch.testing.assert_close(got_upd[k], r, rtol=1e-4, atol=1e-4 * float(r.abs().max()),
+                                   msg=lambda m, k=k: "small module %s update: %s" % (k, m))
+    torch.testing.assert_close(got_var, ref_var, rtol=1e-4, atol=1e-6,
+                               msg=lambda m: "small module %s: %s" % (var, m))
+    say("small input, module: one CIFAR ResNet-8 Module step on the card agrees with the CPU "
+        "(loss %.6f / %.6f; %s updates; %s)" % (got_loss, ref_loss, ", ".join(names), var))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1731,13 +2062,24 @@ def main():
         "frcnn_serve", phase_frcnn_serve, kernels, dev, name)
     frcnn_train_launches, frcnn_bf16_launches, frcnn_nms, frcnn_train = phase(
         "frcnn_train", phase_frcnn_train, kernels, frcnn_net, dev, name)
+    frcnn_serve_bf16_launches, frcnn_serve_bf16 = phase(
+        "frcnn_serve_bf16", phase_frcnn_serve_bf16, kernels, frcnn_net, dev, name)
     del frcnn_net
-    say("frcnn: %s" % json.dumps({"serve": frcnn_serve, "train": frcnn_train}))
+    torch.cuda.empty_cache()
+    say("frcnn: %s" % json.dumps({"serve": frcnn_serve, "train": frcnn_train,
+                                  "serve_bf16": frcnn_serve_bf16}))
+    module_mlp_launches, module_mlp_res = phase("module_mlp", phase_module_mlp, kernels, dev,
+                                                name)
+    module_cifar_launches, module_cifar_res = phase("module_cifar", phase_module_cifar,
+                                                    kernels, dev, name)
+    say("module: %s" % json.dumps({"mlp": module_mlp_res, "cifar": module_cifar_res}))
     launches = {"serve": serve_launches, "train": train_launches,
                 "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
                 "int8": int8_launches, "resnet_train": resnet_launches,
                 "frcnn_serve": frcnn_serve_launches, "frcnn_train": frcnn_train_launches,
-                "frcnn_train_bf16": frcnn_bf16_launches}
+                "frcnn_train_bf16": frcnn_bf16_launches,
+                "frcnn_serve_bf16": frcnn_serve_bf16_launches,
+                "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches}
 
     def kernel_rows():
         rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
@@ -1767,6 +2109,7 @@ def main():
     phase("small_input_bf16", phase_small_input_bf16, dev)
     phase("small_int8", phase_small_int8, dev)
     phase("small_frcnn", phase_small_frcnn, dev)
+    phase("small_module", phase_small_module, dev)
     say("phases (s): %s" % json.dumps(seconds))
     say("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": rows}), flush=True)

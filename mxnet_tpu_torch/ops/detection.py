@@ -434,7 +434,8 @@ class _ROIMax(torch.autograd.Function):
         per_window = per_window.reshape(B, -1, C, W)
         rows = data.transpose(1, 2)                                    # (B, H, C, W)
         grad = torch.zeros((B, C * W, H, 1), dtype=f32, device=data.device)
-        cnt = torch.ones((B, H, C, W), dtype=torch.uint8, device=data.device)
+        # int32: a uint8 count wraps at 256 tied rows
+        cnt = torch.ones((B, H, C, W), dtype=torch.int32, device=data.device)
         prev = None
         for l in range(1, H + 1):
             n, off = H - l + 1, _window(0, l, H)

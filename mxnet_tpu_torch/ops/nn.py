@@ -50,8 +50,27 @@ def _bn_params(attrs, shapes):
     return {"gamma": (c,), "beta": (c,), "moving_mean": (c,), "moving_var": (c,)}
 
 
+def _bn_aux_update(attrs, outputs, aux_vals):
+    """The moving statistics after a training forward (``mxnet_tpu/ops/nn.py
+    _bn_aux_update``): ``moving = m·moving + (1 − m)·batch``, none under
+    ``use_global_stats``.  ``outputs`` is ``(out, mean, var)``."""
+    if attrs.get("use_global_stats"):
+        return aux_vals
+    _, mean, var = outputs
+    m = attrs.get("momentum", 0.9)
+    out = dict(aux_vals)
+    if "moving_mean" in out:
+        out["moving_mean"] = m * out["moving_mean"] + (1 - m) * mean
+    if "moving_var" in out:
+        out["moving_var"] = m * out["moving_var"] + (1 - m) * var
+    return out
+
+
 def _softmax_output_label_shape(attrs, shapes):
-    return {"label": tuple(shapes["data"][:-1])}
+    d = shapes["data"]
+    if attrs.get("multi_output"):
+        return {"label": (d[0],) + tuple(d[2:])}
+    return {"label": tuple(d[:-1])}
 
 
 @register("FullyConnected", inputs_fn=_fc_inputs, infer_params=_fc_params)
@@ -86,7 +105,8 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(1, 1),
                     dilation=pair(dilate))
 
 
-@register("BatchNorm", aux=("moving_mean", "moving_var"), infer_params=_bn_params)
+@register("BatchNorm", aux=("moving_mean", "moving_var"), infer_params=_bn_params,
+          aux_update=_bn_aux_update)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, training=False):
@@ -107,7 +127,8 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
     Returns ``out``, or ``(out, mean, var)`` with ``output_mean_var``;
     gradients flow through ``mean`` and ``var``.  The running statistics
     are not updated here: ``momentum`` is the caller's (the Gluon layer
-    folds ``m·running + (1 − m)·batch`` in after the forward).
+    folds ``m·running + (1 − m)·batch`` in after the forward, the executor
+    the op's ``aux_update``).
 
     The defaults are the op's own (``eps=1e-3``, ``fix_gamma=True``); the
     Gluon layer passes ``1e-5`` and ``fix_gamma = not scale``.
@@ -194,6 +215,7 @@ def activation(data, *, act_type):
     return torch.relu(data)
 
 
+@register("Dropout")
 def dropout(data, *, p=0.5, axes=(), training=False, keep=None, generator=None):
     """Dropout (reference src/operator/nn/dropout.cc; ``mxnet_tpu/ops/nn.py
     dropout``): ``where(keep, data / (1 − p), 0)`` in training, ``data``
@@ -225,8 +247,18 @@ def dropout(data, *, p=0.5, axes=(), training=False, keep=None, generator=None):
 
 
 def softmax(data, *, axis=-1):
-    """Softmax along ``axis`` (reference src/operator/nn/softmax.cc)."""
-    return torch.softmax(data, dim=axis)
+    """Softmax along ``axis`` (reference src/operator/nn/softmax.cc).
+
+    In bf16 or fp16 it takes ``jax.nn.softmax``'s steps, each rounded to
+    the dtype as the JAX op rounds them: x − max, exp, a sum accumulated in
+    fp32 and rounded, the division.  ``torch.softmax`` rounds once at the
+    end, and its bf16 probabilities then differ from the JAX op's by an ulp
+    in about a third of the entries: enough to reorder RPN scores that tie
+    in bf16."""
+    if data.dtype not in (torch.bfloat16, torch.float16):
+        return torch.softmax(data, dim=axis)
+    e = torch.exp(data - data.amax(dim=axis, keepdim=True))
+    return e / e.sum(dim=axis, keepdim=True, dtype=torch.float32).to(data.dtype)
 
 
 def log_softmax(data, *, axis=-1):
@@ -235,9 +267,68 @@ def log_softmax(data, *, axis=-1):
     return torch.log_softmax(data, dim=axis)
 
 
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax(data) forward; backward the reference's fused cross-entropy
+    gradient ``(p − onehot(label))·scale`` (``mxnet_tpu/ops/nn.py
+    _softmax_output_bwd``), whatever cotangent arrives: a head given ones
+    and one given other values get the same gradient.  The label gets a
+    zero gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, multi_output, use_ignore,
+                normalization, smooth_alpha):
+        out = torch.softmax(data, dim=1 if multi_output else -1)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, ignore_label, multi_output, use_ignore, normalization,
+                     smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, multi_output, use_ignore, normalization, smooth_alpha = \
+            ctx.attrs
+        cls_axis = 1 if multi_output else out.dim() - 1
+        n_cls = out.shape[cls_axis]
+        classes = torch.arange(n_cls, device=out.device).reshape(
+            [n_cls if i == cls_axis else 1 for i in range(out.dim())])
+        # jax.nn.one_hot: a label outside [0, n_cls) (ignore_label -1) is all 0
+        onehot = (label.to(torch.int64).unsqueeze(cls_axis) == classes).to(out.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1.0 - smooth_alpha) + smooth_alpha / (n_cls - 1) * (1.0 - onehot)
+        grad = out - onehot
+        if use_ignore:
+            keep = (label != ignore_label).to(out.dtype)
+            grad = grad * keep.unsqueeze(cls_axis)
+        if normalization == "valid" and use_ignore:
+            valid = torch.clamp_min(torch.sum(label != ignore_label), 1).to(out.dtype)
+            # a tensor division on the device, as the JAX op's
+            scale = torch.full((), grad_scale, dtype=out.dtype, device=out.device) / valid
+        elif normalization == "batch":
+            scale = grad_scale / out.shape[0]
+        else:
+            scale = grad_scale
+        d_label = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad * scale, d_label, None, None, None, None, None, None
+
+
 @register("SoftmaxOutput", infer_params=_softmax_output_label_shape)
-def softmax_output(data, label):
-    """The inference forward of SoftmaxOutput (reference
-    src/operator/softmax_output.cc): softmax over the last axis.  ``label``
-    only enters the fused cross-entropy gradient, which is not ported."""
-    return torch.softmax(data, dim=-1)
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0, multi_output=False,
+                   use_ignore=False, preserve_shape=False, normalization="null",
+                   out_grad=False, smooth_alpha=0.0):
+    """Softmax with the reference's fused cross-entropy gradient (reference
+    src/operator/softmax_output.cc; ``mxnet_tpu/ops/nn.py softmax_output``).
+
+    Forward: softmax over the last axis, or over axis 1 with
+    ``multi_output`` (label (N, d2, ...) then).  Backward:
+    ``(p − onehot(label))·scale`` with ``smooth_alpha`` label smoothing,
+    rows whose label is ``ignore_label`` zeroed under ``use_ignore``, and
+    ``scale`` = ``grad_scale``, ``grad_scale / batch`` (``normalization=
+    "batch"``) or ``grad_scale / max(valid labels, 1)`` (``"valid"`` with
+    ``use_ignore``).  The incoming cotangent is not read.
+    ``preserve_shape`` and ``out_grad`` are accepted and, as in the JAX op,
+    ignored."""
+    if not torch.is_grad_enabled() or not data.requires_grad:
+        return torch.softmax(data, dim=1 if multi_output else -1)
+    return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label, multi_output,
+                                use_ignore, normalization, smooth_alpha)

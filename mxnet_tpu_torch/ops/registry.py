@@ -10,7 +10,8 @@ The symbolic frontend (``mxnet_tpu_torch.symbol``) builds its ``sym.*``
 functions from these entries, reads the tensor-argument names for
 ``list_arguments``, and infers shapes by running the functions on ``meta``
 tensors.  Only the operators of the ported paths are registered: those of
-the ResNet symbol and of int8 post-training quantization.
+the ResNet symbol, the ``bench.py`` Module MLP, Dropout, and int8
+post-training quantization.
 """
 from __future__ import annotations
 
@@ -25,24 +26,31 @@ class OpDef:
     """A registered operator.
 
     ``name`` is the MXNet op name, ``fn`` the function, ``hint`` the stem of
-    its automatic node names, ``arg_names`` its tensor arguments in order
-    and ``defaults`` the defaults among them.  ``aux`` names the tensor
-    arguments that are auxiliary states (BatchNorm's moving statistics);
-    ``inputs_fn(attrs)`` lists the tensor arguments that these attributes
-    need (no bias under ``no_bias``); ``infer_params(attrs, shapes)`` gives
-    the shapes of parameter inputs from the known input shapes.
+    its automatic node names, ``arg_names`` its tensor arguments in order,
+    ``attr_names`` its attributes (keyword-only parameters) and
+    ``defaults`` the defaults among the tensor arguments.  ``aux`` names
+    the tensor arguments that are auxiliary states (BatchNorm's moving
+    statistics); ``inputs_fn(attrs)`` lists the tensor arguments that these
+    attributes need (no bias under ``no_bias``); ``infer_params(attrs,
+    shapes)`` gives the shapes of parameter inputs from the known input
+    shapes; ``aux_update(attrs, outputs, {aux name: tensor})`` gives the
+    auxiliary states after a training forward from the op's outputs (the
+    reference mutates them inside the kernel; the executor applies this).
     """
 
-    def __init__(self, name, fn, aux=(), inputs_fn=None, infer_params=None):
+    def __init__(self, name, fn, aux=(), inputs_fn=None, infer_params=None,
+                 aux_update=None):
         self.name = name
         self.fn = fn
         self.hint = name.lower().lstrip("_")
         self.aux = tuple(aux)
         self.inputs_fn = inputs_fn
         self.infer_params = infer_params
-        positional = [p for p in inspect.signature(fn).parameters.values()
-                      if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
+        self.aux_update = aux_update
+        params = inspect.signature(fn).parameters.values()
+        positional = [p for p in params if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
         self.arg_names = [p.name for p in positional]
+        self.attr_names = [p.name for p in params if p.kind == inspect.Parameter.KEYWORD_ONLY]
         self.defaults = {p.name: p.default for p in positional
                          if p.default is not inspect.Parameter.empty}
         self.__doc__ = fn.__doc__
@@ -51,7 +59,7 @@ class OpDef:
         return "OpDef(%s)" % self.name
 
 
-def register(name, aux=(), inputs_fn=None, infer_params=None):
+def register(name, aux=(), inputs_fn=None, infer_params=None, aux_update=None):
     """Decorator: register ``fn`` as operator ``name``.  The function itself
     is returned unchanged."""
 
@@ -59,7 +67,7 @@ def register(name, aux=(), inputs_fn=None, infer_params=None):
         if name in _REGISTRY:
             raise ValueError("duplicate op registration: %s" % name)
         _REGISTRY[name] = OpDef(name, fn, aux=aux, inputs_fn=inputs_fn,
-                                infer_params=infer_params)
+                                infer_params=infer_params, aux_update=aux_update)
         return fn
 
     return _reg

@@ -3,17 +3,20 @@
 
 Every op registered in ``mxnet_tpu_torch.ops.registry`` gets a builder here
 (``sym.Convolution``, ``sym.BatchNorm``, ...), and every ``_contrib_<op>`` one
-in ``sym.contrib`` (``sym.contrib.quantize``).  ``simple_bind`` binds a graph
-on a device; see :mod:`mxnet_tpu_torch.executor`.
+in ``sym.contrib`` (``sym.contrib.quantize``).  ``bind`` / ``simple_bind``
+bind a graph on a device (see :mod:`mxnet_tpu_torch.executor`); ``load`` /
+``load_json`` read the JSON that ``Symbol.save`` / ``tojson`` write.
 """
 import sys
 import types
 
 from ..ops import elemwise, matrix, nn, quantization, reduce  # noqa: F401  (register the ops)
 from ..ops import registry as _registry
-from .symbol import Group, NameManager, Symbol, Variable, _make_sym_op_func, var
+from .symbol import (Group, NameManager, Symbol, Variable, _make_sym_op_func, load,
+                     load_json, var)
 
-__all__ = ["Symbol", "Variable", "var", "Group", "NameManager", "contrib"]
+__all__ = ["Symbol", "Variable", "var", "Group", "NameManager", "load", "load_json",
+           "contrib"]
 
 _self = sys.modules[__name__]
 contrib = types.ModuleType(__name__ + ".contrib")

@@ -11,12 +11,16 @@ output shapes and dtypes and no data, and the kernel wrappers take their
 plain versions there, so nothing is launched.
 
 Ported: ``Symbol``, ``Variable``, ``Group``, multi-output indexing,
-``get_internals``, the ``list_*`` methods, ``infer_shape``, ``simple_bind``
-and ``+``.  Serialization (``tojson`` / ``load``), composition and the other
-arithmetic operators are not.
+``get_internals``, the ``list_*`` methods, user attributes (``attr=``,
+``attr_dict``), ``infer_shape``, ``bind``, ``simple_bind``, ``+``, and
+``tojson`` / ``save`` / ``load`` / ``load_json`` in the JSON the JAX package
+writes, so a symbol file of either package loads in the other.
+Composition and the other arithmetic operators are not.
 """
 from __future__ import annotations
 
+import json
+import re
 import threading
 
 import torch
@@ -24,7 +28,43 @@ import torch
 from ..context import resolve_device
 from ..ops import registry as _registry
 
-__all__ = ["Symbol", "Variable", "var", "Group", "NameManager"]
+__all__ = ["Symbol", "Variable", "var", "Group", "NameManager", "load", "load_json"]
+
+_TUPLE_RE = re.compile(r"^[\(\[].*[\)\]]$")
+
+
+def parse_attr(value):
+    """A string attribute -> a Python value (bool, None, tuple, int, float or
+    the string), as ``mxnet_tpu/base.py parse_attr`` reads one."""
+    if not isinstance(value, str):
+        return value
+    s = value.strip()
+    low = s.lower()
+    if low == "true":
+        return True
+    if low == "false":
+        return False
+    if low == "none":
+        return None
+    if _TUPLE_RE.match(s):
+        inner = s[1:-1].strip()
+        if not inner:
+            return ()
+        return tuple(parse_attr(tok) for tok in inner.split(","))
+    for kind in (int, float):
+        try:
+            return kind(s)
+        except ValueError:
+            pass
+    return s
+
+
+def attr_str(value):
+    """An attribute value -> its string form (``mxnet_tpu/base.py
+    attr_str``): tuples and lists as ``(a, b)``."""
+    if isinstance(value, (tuple, list)):
+        return "(" + ", ".join(attr_str(v) for v in value) + ")"
+    return str(value)
 
 
 class NameManager:
@@ -62,9 +102,10 @@ class NameManager:
 
 class Symbol:
     __slots__ = ("op", "inputs", "attrs", "name", "num_outputs", "out_index",
-                 "_dtype_hint")
+                 "_dtype_hint", "_user_attrs")
 
-    def __init__(self, op, inputs, attrs, name, num_outputs=1, out_index=None):
+    def __init__(self, op, inputs, attrs, name, num_outputs=1, out_index=None,
+                 user_attrs=None):
         self.op = op                  # OpDef, or None for variables and groups
         self.inputs = inputs          # list of Symbols (single-output views)
         self.attrs = attrs            # the op's attributes
@@ -72,6 +113,7 @@ class Symbol:
         self.num_outputs = num_outputs
         self.out_index = out_index    # set on one output of a multi-output node
         self._dtype_hint = None       # a variable's torch dtype, if not float32
+        self._user_attrs = dict(user_attrs or {})  # __lr_mult__, __init__, ...
 
     # -- graph structure ----------------------------------------------------
     @property
@@ -90,13 +132,14 @@ class Symbol:
         if index >= self.num_outputs:
             raise IndexError(index)
         return Symbol(self.op, self.inputs, self.attrs, self.name,
-                      self.num_outputs, out_index=index)
+                      self.num_outputs, out_index=index, user_attrs=self._user_attrs)
 
     def _base(self):
         """The node itself, ignoring an output selection."""
         if self.out_index is None:
             return self
-        return Symbol(self.op, self.inputs, self.attrs, self.name, self.num_outputs)
+        return Symbol(self.op, self.inputs, self.attrs, self.name, self.num_outputs,
+                      user_attrs=self._user_attrs)
 
     def get_internals(self):
         """Every node output, in topological order, as a Group whose outputs
@@ -170,6 +213,18 @@ class Symbol:
                         aux_names.append(inp.name)
         return aux_names
 
+    def attr_dict(self):
+        """{node name: {attribute: string}} over the graph: each node's user
+        attributes (``__lr_mult__``, ``__wd_mult__``, ...) and op attributes
+        (reference symbol.py attr_dict)."""
+        out = {}
+        for node in self._walk():
+            d = dict(node._user_attrs)
+            d.update((k, attr_str(v)) for k, v in node.attrs.items())
+            if d:
+                out[node.name] = d
+        return out
+
     # -- shape inference ----------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the shapes of some
@@ -199,23 +254,67 @@ class Symbol:
         return "<Symbol %s>" % self.name
 
     # -- binding --------------------------------------------------------------
+    def bind(self, device=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None):
+        """Bind to given arrays (reference symbol.py bind): ``args``,
+        ``args_grad`` and ``aux_states`` are dicts by name or lists in
+        ``list_arguments`` / ``list_auxiliary_states`` order.  A tensor on
+        ``device`` is used as it is (the executor updates it in place),
+        anything else is copied there.  ``grad_req`` ("write", "add" or
+        "null") is one for all or a dict / list per argument.
+
+        ``device`` is None (CUDA), a string or a ``torch.device``; without
+        CUDA it raises unless ``device="cpu"``."""
+        from ..executor import Executor
+
+        dev = resolve_device(device)
+        names, aux_names = self.list_arguments(), self.list_auxiliary_states()
+        return Executor(self, dev, _named(args, names, "args", dev),
+                        _named(args_grad, names, "args_grad", dev),
+                        grad_req, _named(aux_states, aux_names, "aux_states", dev))
+
     def simple_bind(self, device=None, grad_req="write", **shapes):
         """Allocate every argument and auxiliary state from shape inference,
         zero-filled on ``device``, and bind (reference symbol.py:1287).
+        Gradient buffers are allocated for every argument unless
+        ``grad_req`` is ``"null"``; ``grad_req`` as ``bind``.
 
         ``device`` is None (CUDA), a string or a ``torch.device``; without
         CUDA it raises unless ``device="cpu"``.  Variables marked with a
         dtype (the int8 weights of a quantized symbol) are allocated in it.
-        The executor runs the inference forward only, whatever ``grad_req``
-        says.
         """
         from ..executor import Executor
 
         dev = resolve_device(device)
         metas = self._arg_metas(shapes)
         alloc = lambda n: torch.zeros(metas[n].shape, dtype=metas[n].dtype, device=dev)
-        return Executor(self, dev, {n: alloc(n) for n in self.list_arguments()},
+        names = self.list_arguments()
+        grads = None if grad_req == "null" else {n: alloc(n) for n in names}
+        return Executor(self, dev, {n: alloc(n) for n in names}, grads, grad_req,
                         {n: alloc(n) for n in self.list_auxiliary_states()})
+
+    # -- serialization --------------------------------------------------------
+    def tojson(self):
+        """The graph as JSON, in the JAX package's format (reference
+        Symbol::ToJSON): ``{"nodes": [{op, name, attrs, inputs}], "heads":
+        [[node, output, 0]], "attrs": {"mxnet_tpu_version": 1}}``, attribute
+        values as strings."""
+        nodes, index = [], {}
+        for node in self._walk():
+            inputs = []
+            for inp in node.inputs:
+                inputs.append([index[inp.name], inp.out_index or 0, 0])
+            nodes.append({"op": node.op.name if node.op else "null", "name": node.name,
+                          "attrs": {k: attr_str(v) for k, v in node.attrs.items()},
+                          "inputs": inputs})
+            index[node.name] = len(nodes) - 1
+        heads = [[index[node.name], idx, 0] for node, idx in self._outputs_of()]
+        return json.dumps({"nodes": nodes, "heads": heads,
+                           "attrs": {"mxnet_tpu_version": 1}}, indent=2)
+
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
 
     def _arg_metas(self, shapes):
         """{name: meta tensor} of every argument and auxiliary state, in the
@@ -244,11 +343,33 @@ def _node_input_names(node):
     return node.op.arg_names[: len(node.inputs)]
 
 
-def _num_outputs_of(opdef):
+def _num_outputs_of(opdef, attrs):
     if opdef.name in ("_contrib_quantize", "_contrib_requantize") or \
             opdef.name.startswith("_contrib_quantized_"):
         return 3  # (values, min_range, max_range)
+    if opdef.name == "BatchNorm" and attrs.get("output_mean_var"):
+        return 3  # (out, mean, var)
     return 1
+
+
+def _on_device(v, dev):
+    """A tensor on ``dev`` as it is; anything else copied there (float64
+    arrays as float32, as the JAX package's ``nd.array``)."""
+    t = torch.as_tensor(v, device=dev)
+    return t.float() if not isinstance(v, torch.Tensor) and t.dtype == torch.float64 else t
+
+
+def _named(arrays, names, what, dev):
+    """A dict by name, or a list in ``names`` order (None entries dropped),
+    -> {name: tensor on ``dev``}; None -> {}."""
+    if arrays is None:
+        return {}
+    if not isinstance(arrays, dict):
+        if len(arrays) != len(names):
+            raise ValueError("%s has %d arrays, expected %d (%s)"
+                             % (what, len(arrays), len(names), names))
+        arrays = {n: a for n, a in zip(names, arrays) if a is not None}
+    return {k: _on_device(v, dev) for k, v in arrays.items()}
 
 
 def _make_sym_op_func(opdef, public_name):
@@ -258,13 +379,14 @@ def _make_sym_op_func(opdef, public_name):
 
     def sym_func(*args, **kwargs):
         name = kwargs.pop("name", None)
+        user_attrs = kwargs.pop("attr", None)
         named = dict(zip(opdef.arg_names, args))
         attrs = {}
         for k, v in kwargs.items():
             if k in opdef.arg_names and isinstance(v, Symbol):
                 named[k] = v
             elif k not in ("cudnn_tune", "cudnn_off", "workspace", "__layout__"):
-                attrs[k] = v
+                attrs[k] = parse_attr(v)
         if opdef.inputs_fn is not None:
             needed = opdef.inputs_fn(attrs)
         else:
@@ -272,7 +394,8 @@ def _make_sym_op_func(opdef, public_name):
         name = NameManager.current().get(name, opdef.hint)
         inputs = [named[a] if a in named else Variable("%s_%s" % (name, a))
                   for a in needed]
-        return Symbol(opdef, inputs, attrs, name, _num_outputs_of(opdef))
+        return Symbol(opdef, inputs, attrs, name, _num_outputs_of(opdef, attrs),
+                      user_attrs=user_attrs)
 
     sym_func.__name__ = public_name.lstrip("_")
     sym_func.__qualname__ = sym_func.__name__
@@ -281,9 +404,10 @@ def _make_sym_op_func(opdef, public_name):
     return sym_func
 
 
-def Variable(name):
-    """A symbolic variable."""
-    return Symbol(None, [], {}, name)
+def Variable(name, attr=None):
+    """A symbolic variable; ``attr`` its user attributes (``{"__lr_mult__":
+    "0.1"}``, ``{"__init__": initializer.dumps()}``)."""
+    return Symbol(None, [], {}, name, user_attrs=attr)
 
 
 var = Variable
@@ -292,6 +416,32 @@ var = Variable
 def Group(symbols):
     """Several symbols as one multi-output symbol (reference sym.Group)."""
     return Symbol(None, list(symbols), {"__group__": True}, "_group")
+
+
+def load(fname):
+    """A symbol from a JSON file of either package (``Symbol.save``)."""
+    with open(fname) as f:
+        return load_json(f.read())
+
+
+def load_json(json_str):
+    """A symbol from ``tojson``'s output (``mxnet_tpu/symbol/symbol.py
+    load_json``); every op must be registered in the port."""
+    data = json.loads(json_str)
+    built = []
+    for rec in data["nodes"]:
+        if rec["op"] == "null":
+            built.append(Variable(rec["name"]))
+            continue
+        opdef = _registry.get(rec["op"])
+        attrs = {k: parse_attr(v) for k, v in rec.get("attrs", {}).items()}
+        inputs = [built[i][o] if built[i].num_outputs > 1 else built[i]
+                  for i, o, _ in rec["inputs"]]
+        built.append(Symbol(opdef, inputs, attrs, rec["name"],
+                            _num_outputs_of(opdef, attrs)))
+    heads = [built[i][o] if built[i].num_outputs > 1 else built[i]
+             for i, o, _ in data["heads"]]
+    return heads[0] if len(heads) == 1 else Group(heads)
 
 
 def _infer_graph(sym, known_shapes):

@@ -859,3 +859,92 @@ def test_roi_pooling_card_against_cpu(cuda):
         assert torch.equal(o_got, o_ref)
         tol = 1e-6 if dtype == torch.float32 else 1e-2
         torch.testing.assert_close(g_got, g_ref, rtol=tol, atol=tol * float(g_ref.abs().max()))
+
+
+def test_tiny_faster_rcnn_bf16_serve_card_against_cpu(cuda):
+    """The tiny FasterRCNN served after ``cast("bfloat16")`` on the card
+    against the CPU from the same weights, stage by stage, each stage fed
+    the CPU's inputs (bf16 values within a few ulps: each device rounds its
+    bf16 convolutions at other places), then end to end: rois fp32,
+    cls_prob and bbox_pred bf16, finite, one NMS launch and no other
+    kernel."""
+    from mxnet_tpu_torch import train_frcnn
+    from mxnet_tpu_torch.gluon.model_zoo import FasterRCNN
+
+    bf = torch.bfloat16
+    cfg = dict(classes=3, image_shape=(64, 96), rpn_pre_nms=200, rpn_post_nms=32,
+               **train_frcnn.TINY)
+    gen = torch.Generator().manual_seed(FRCNN_SEED)
+    cpu = FasterRCNN(device="cpu", generator=gen, **cfg)
+    with torch.no_grad():
+        cpu.rpn_cls.weight.mul_(FRCNN_RPN_GAIN)
+    gpu = FasterRCNN(device=cuda, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.cast("bfloat16")
+    gpu.cast("bfloat16")
+    data = torch.randn((2, 3, 64, 96), generator=gen).to(bf)
+    info = torch.tensor([[64, 96, 1.0], [48, 80, 1.0]])
+    g = lambda t: t.to(cuda)
+    close = lambda got, ref, tol: torch.testing.assert_close(
+        got.cpu().float(), ref.float(), rtol=tol, atol=tol * float(ref.float().abs().max()))
+    with torch.inference_mode():
+        c5 = cpu._features(data)
+        close(gpu._features(g(data)), c5, 3e-2)
+        rc, rb = cpu._rpn(c5)
+        grc, grb = gpu._rpn(g(c5))
+        close(grc, rc, 2e-2)
+        close(grb, rb, 2e-2)
+        rois = cpu._proposals(rc, rb, info)
+        grois = gpu._proposals(g(rc), g(rb), g(info))
+        assert grois.dtype == torch.float32
+        torch.testing.assert_close(grois.cpu(), rois, rtol=0, atol=0.1)
+        cs, bp = cpu._head(c5, rois, rois_per_image=32)
+        gcs, gbp = gpu._head(g(c5), g(rois), rois_per_image=32)
+        close(torch.softmax(gcs.float(), -1), torch.softmax(cs.float(), -1), 2e-2)
+        close(gbp, bp, 3e-2)
+        kernels.reset_launches()
+        out = gpu(g(data), g(info))
+    assert [t.dtype for t in out] == [torch.float32, bf, bf]
+    assert [tuple(t.shape) for t in out] == [(64, 5), (64, 4), (64, 16)]
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    assert {n: k.wrapper.launches for n, k in kernels.KERNELS.items()} == \
+        {n: int(n == "nms_alive") for n in kernels.KERNELS}
+
+
+def test_cifar_resnet8_module_step_card_against_cpu(cuda):
+    """One Module step (forward_backward + update, sgd lr 0.05 momentum 0.9
+    wd 1e-4) of the CIFAR ResNet-8 at batch 4 on the card and on the CPU
+    from the same weights: the outputs, every parameter and moving statistic
+    after the step; no ported kernel launched."""
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+    from mxnet_tpu_torch.module import Module
+
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(4, 3, 28, 28).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (4,)).astype(np.float32))
+    res, start = [], None
+    for d in ("cpu", cuda):
+        mod = Module(get_symbol(10, 8, "3,28,28"), device=d)
+        mod.bind(data_shapes=[("data", (4, 3, 28, 28))], label_shapes=[("softmax_label", (4,))])
+        if start is None:
+            mod.init_params(Xavier(rnd_type="gaussian", factor_type="in", magnitude=2,
+                                   generator=torch.Generator().manual_seed(11)))
+            start = tuple({k: v.clone() for k, v in p.items()} for p in mod.get_params())
+        else:
+            mod.init_params(arg_params=start[0], aux_params=start[1])
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+            learning_rate=0.05, momentum=0.9, wd=1e-4))
+        kernels.reset_launches()
+        mod.forward_backward(DataBatch([x.to(d)], [y.to(d)]))
+        mod.update()
+        assert not any(k.wrapper.launches for k in kernels.KERNELS.values())
+        arg, aux = mod.get_params()
+        res.append((mod.get_outputs()[0].cpu(), {k: v.cpu() for k, v in {**arg, **aux}.items()}))
+    (out_ref, ref), (out_got, got) = res
+    torch.testing.assert_close(out_got, out_ref, rtol=1e-4, atol=1e-6)
+    for k, r in ref.items():
+        moved = r - start[0].get(k, start[1].get(k))
+        torch.testing.assert_close(got[k], r, rtol=1e-4, atol=1e-4 * float(moved.abs().max()),
+                                   msg=lambda m, k=k: "%s: %s" % (k, m))

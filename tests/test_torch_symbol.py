@@ -291,11 +291,24 @@ def test_simple_bind_allocates_int8_for_the_offline_weights(quantized):
 
 
 def test_executor_runs_inference_only(nets):
+    """The inference forward runs under ``torch.inference_mode`` (its
+    outputs are inference tensors and change no moving statistic); the
+    training forward and ``backward`` now run too (the symbolic training
+    path, tests/test_torch_module.py holds them against the JAX package)."""
     exe = nets["tnet"].simple_bind(device="cpu", data=SHAPE)
-    with pytest.raises(NotImplementedError, match="A8"):
-        exe.forward(is_train=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        exe.backward()
+    for k, v in nets["args"].items():
+        exe.arg_dict[k].copy_(torch.as_tensor(v))
+    aux = {k: v.clone() for k, v in exe.aux_dict.items()}
+    x = np.random.RandomState(0).randn(*SHAPE).astype(np.float32)
+    out = exe.forward(data=x)[0]
+    assert out.is_inference() and all(torch.equal(v, aux[k]) for k, v in exe.aux_dict.items())
+    with pytest.raises(RuntimeError, match="forward"):
+        nets["tnet"].simple_bind(device="cpu", data=SHAPE).backward()
+    train = exe.forward(is_train=True, data=x, softmax_label=np.arange(4.0))[0]
+    assert not train.is_inference() and train.shape == out.shape
+    assert any(not torch.equal(v, aux[k]) for k, v in exe.aux_dict.items())
+    exe.backward()
+    assert float(exe.grad_dict["fc1_weight"].abs().max()) > 0
     with pytest.raises(ValueError, match="unknown argument"):
         exe.forward(image=np.zeros(SHAPE, np.float32))
 
