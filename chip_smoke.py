@@ -82,6 +82,26 @@ Phases, in order; any failure exits non-zero:
    decay alone with a zero gradient; ms a step, img/s, peak memory and one
    profiled step.  One step of each path runs under
    ``set_sync_debug_mode("error")``, and neither launches a ported kernel;
+8c. ssd: the SSD path of BASELINE config 5 (``examples/ssd/train_fused.py``,
+   VGG16-reduced, 20 classes, seeded Xavier weights, synthetic VOC images).
+   ``ssd_serve``: the score step (forward, fp32 softmax, MultiBoxDetection
+   at NMS 0.45, top 400) of SSD300 (8,732 anchors) in fp32 and, after
+   ``cast("bfloat16")``, in bf16, each with three single-image requests and
+   three batches of 16, and of SSD512 (24,564 anchors) in fp32 at batch 16;
+   every answer checked (shape, finite, valid rows a sorted prefix of at
+   most 400, class range, boxes in [0, 1]) with one NMS launch a call and
+   no other kernel, the first batch of 16 under
+   ``set_sync_debug_mode("error")``; ms, img/s, peak memory, kernels a call,
+   busy and idle share.  ``ssd_train``: the train step (MultiBoxTarget with
+   3:1 mining, the two losses, momentum SGD 0.9 at lr 1e-3) of SSD300 at
+   batch 8 in fp32 and bf16 (``compute_dtype``) and of SSD512 at batch 4 in
+   fp32: a warm-up step, one under the sync check and three timed steps,
+   finite loss parts, no ported kernel launched, fp32 masters; ms, img/s,
+   peak memory, profile.  The kernels phase holds one batch-16 NMS call of
+   each score path, and the batch-1 requests' calls, bit for bit against
+   the plain version and times it at
+   N 8,732 (the staged scan) and N 24,564 (``nms_scan_kernel_global``),
+   checking which scan ran;
 9. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
    with the same weights and the same noise, with frozen BatchNorm and with
@@ -91,7 +111,9 @@ Phases, in order; any failure exits non-zero:
    the tiny Faster R-CNN stage by stage, end to end and over one train step
    with the same weights, noise and dropout masks; one Module step of the
    CIFAR ResNet-8 from the same weights (loss, two weights' updates, a
-   moving variance).
+   moving variance); the tiny SSD (128², 1,528 anchors) stage by stage
+   (forward, MultiBoxDetection on the CPU's probabilities), its score step,
+   and one train step's loss parts and weights.
 
 Each phase prints its seconds, and the run its total, before the last two
 lines.
@@ -179,6 +201,16 @@ CIFAR = dict(num_classes=10, num_layers=110, image_shape="3,28,28")
 CIFAR_BATCH, CIFAR_BATCHES, CIFAR_SCORE_BATCHES = 128, 8, 2
 CIFAR_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
 CIFAR_EPOCH_UPDATES, CIFAR_LR_STEP_EPOCHS, CIFAR_LR_FACTOR = 50000 // 128, (200, 250), 0.1
+# BASELINE config 5 (examples/ssd/train_fused.py run_bench): the VGG16-reduced
+# SSD, 20 VOC classes, seeded Xavier weights; the train step at batch 8
+# (SSD300, 8,732 anchors) and 4 (SSD512, 24,564), momentum SGD 0.9 at lr
+# 1e-3; the score step (forward, softmax, MultiBoxDetection at NMS 0.45, top
+# 400) at batch 16, and SSD300 also at batch 1 (the reference's 95 / 64 FPS
+# bars at 300², example/ssd/README.md:44-50)
+SSD_CLASSES, SSD_LR = 20, 1e-3
+SSD_TRAIN_BATCH = {300: 8, 512: 4}
+SSD_SERVE_BATCH, SSD_REQUESTS, SSD_TIMED = 16, 3, 3
+SSD_TOPK = 400
 
 
 def fail(msg):
@@ -514,12 +546,16 @@ def work(name, args, out):
         n = args[0].numel()
         return 5 * n + 4, (4 if name == "quantize_int8" else 1) * n
     boxes, valid = args[0], args[1]
+    ids = args[2] if len(args) > 2 else None
     # IoUs the greedy scan needs on this data: each survivor against every
     # earlier survivor, each suppressed box against at least one; ~12 flops each
     alive = out.to(torch.int64)
     earlier = torch.cumsum(alive, 1) - alive
     pairs = int((earlier * alive).sum()) + int((valid & ~out).sum())
-    return boxes.numel() * 4 + 2 * valid.numel(), 12 * pairs
+    # the valid and alive masks whole; a box (and a float32 class id) only
+    # where valid, since an invalid row can neither suppress nor survive
+    row_bytes = 4 * boxes.shape[-1] + (0 if ids is None else 4)
+    return int(valid.sum()) * row_bytes + 2 * valid.numel(), 12 * pairs
 
 
 def capture_calls(kernels, names, run):
@@ -1207,6 +1243,7 @@ def timed_forward(exe, data, reps=7):
 
 
 PROFILE_GROUPS = (  # first match wins, on the lower-cased kernel name
+    ("nms_alive", ("nms_mask_kernel", "nms_scan_kernel")),
     ("dequantize_int8", ("dequantize_int8_kernel",)),
     ("quantize_int8", ("quantize_int8_kernel",)),
     ("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "cudnn")),
@@ -1799,6 +1836,346 @@ def phase_small_frcnn(dev):
         % (", ".join(n for n, *_ in stages), ", ".join("%.5f" % v for v in got_parts.tolist())))
 
 
+def ssd_check(out, batch, n_anchors, what):
+    """A score step's answer: (B, A, 6) fp32, finite; the valid rows (score
+    >= 0) a prefix of at most SSD_TOPK rows sorted by score; a kept row's
+    class in [0, SSD_CLASSES) and its box in [0, 1]; the other rows -1.
+    -> (valid rows, kept rows) per image."""
+    if tuple(out.shape) != (batch, n_anchors, 6) or out.dtype != torch.float32:
+        fail("%s: detections are %s %s, expected float32 %s"
+             % (what, out.dtype, tuple(out.shape), (batch, n_anchors, 6)))
+    if not bool(torch.isfinite(out).all()):
+        fail("%s: non-finite detections" % what)
+    cid, score = out[..., 0], out[..., 1]
+    valid = score >= 0
+    n = valid.sum(1)
+    if not bool((valid == (torch.arange(n_anchors, device=out.device) < n[:, None])).all()):
+        fail("%s: the valid rows are not a prefix" % what)
+    if not bool((n <= SSD_TOPK).all()):
+        fail("%s: more than %d valid rows" % (what, SSD_TOPK))
+    if bool(((score[:, 1:] > score[:, :-1]) & valid[:, 1:]).any()):
+        fail("%s: valid rows are not sorted by score" % what)
+    kept = cid >= 0
+    if bool((kept & ~valid).any()) or bool((cid[kept] >= SSD_CLASSES).any()) \
+            or bool((cid[~kept] != -1).any()):
+        fail("%s: class ids outside [0, %d) or on invalid rows" % (what, SSD_CLASSES))
+    box = out[..., 2:][valid]
+    if bool(((box < 0) | (box > 1)).any()):
+        fail("%s: a valid box outside [0, 1]" % what)
+    if bool((out[~valid] != -1).any()):
+        fail("%s: an invalid row is not all -1" % what)
+    return n.tolist(), kept.sum(1).tolist()
+
+
+def ssd_images(size, batch, seed):
+    """A seeded synthetic VOC batch on the host: (data, labels)."""
+    from mxnet_tpu_torch import train_ssd
+
+    return train_ssd.synthetic_voc(np.random.RandomState(seed), batch, size, SSD_CLASSES)
+
+
+def ssd_serve_path(kernels, net, anchors, size, label, card, batches, dev, seed, base):
+    """One score path: for each batch size, a warm-up call, then timed calls
+    (host clock, synchronised), each answer checked and one NMS launch each;
+    the first batch-16 call under ``no_host_sync``.  Peak memory is counted
+    above ``base``, the bytes allocated before the model was built.  ->
+    (launches, the NMS calls of one batch-16 call and of the batch-1
+    requests, report)."""
+    from mxnet_tpu_torch import train_ssd
+
+    score = train_ssd.make_score_step(net, anchors)
+    expect = frcnn_expect(kernels)
+    # batch 1: SSD_REQUESTS requests of one image each
+    xs = {b: torch.from_numpy(ssd_images(size, SSD_REQUESTS if b == 1 else b, seed + b)[0])
+          .to(dev) for b in batches}
+    for b in batches:  # cuDNN and allocator set-up
+        score(xs[b][:b])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    report = {}
+    for b in batches:
+        x = xs[b]
+        reps = [x[i:i + 1] for i in range(SSD_REQUESTS)] if b == 1 else [x] * SSD_TIMED
+        times = []
+        for i, xi in enumerate(reps):
+            before = counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0 and b == SSD_SERVE_BATCH:
+                out = no_host_sync(lambda: score(xi), "the %s score step" % label)
+            else:
+                out = score(xi)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            valid, kept = ssd_check(out, b, anchors.shape[0], label)
+            got = {n: c - before[n] for n, c in counts(kernels).items()}
+            if got != expect:
+                fail("%s score step launched %s, expected %s" % (label, got, expect))
+        ms = statistics.median(times)
+        report["batch%d" % b] = dict(ms=ms, all_ms=times, img_per_s=b / ms * 1e3)
+        say("%s batch %d: %s ms, valid rows %s, kept after NMS %s" % (
+            label, b, ", ".join("%.2f" % t for t in times), valid[:4], kept[:4]))
+    launches = counts(kernels)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    x = xs[SSD_SERVE_BATCH]
+    prof = device_profile(lambda: score(x), reps=3, top=6)
+    # the NMS calls that the kernels phase compares: one batch-16 call first,
+    # then the batch-1 requests
+    requests = [xs[1][i:i + 1] for i in range(SSD_REQUESTS)] if 1 in batches else []
+    nms = capture_calls(kernels, ["nms_alive"],
+                        lambda: [score(xi) for xi in [x] + requests])["nms_alive"]
+    for b in batches:
+        r = report["batch%d" % b]
+        say("%s on %s: batch %d, median %.2f ms, %.2f img/s" % (label, card, b, r["ms"],
+                                                               r["img_per_s"]))
+    say("%s on %s: peak memory %.2f GiB; batch %d: %s kernels a call, device busy %s ms, "
+        "idle share %s; groups %s" % (
+            label, card, peak, SSD_SERVE_BATCH, prof.get("kernels_per_call"),
+            prof.get("device_busy_ms"), prof.get("idle_share"), json.dumps(prof)))
+    report.update(peak_gib=peak, profile=prof)
+    say("%s launches (%d calls): %s" % (label, sum(
+        SSD_REQUESTS if b == 1 else SSD_TIMED for b in batches), json.dumps(launches)))
+    return launches, nms, report
+
+
+def phase_ssd_serve(kernels, dev, card):
+    """SSD300 served in fp32 and, after ``cast("bfloat16")``, in bf16 (box
+    math fp32) at batch 1 and 16; SSD512 in fp32 at batch 16."""
+    from mxnet_tpu_torch.gluon.model_zoo import SSD300, SSD512, VGGSSD
+
+    launches, nms, reports = {}, {}, {}
+    for size, cfg, seed in ((300, SSD300, SEED + 51), (512, SSD512, SEED + 52)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        net = VGGSSD(SSD_CLASSES, cfg, device=dev,
+                     generator=torch.Generator().manual_seed(seed))
+        anchors = net.make_anchors(size)
+        torch.cuda.synchronize()
+        say("ssd%d serve: VGG16-reduced SSD, %d classes, %d anchors, %.1f M parameters, "
+            "built in %.1f s" % (size, SSD_CLASSES, anchors.shape[0],
+                                 sum(p.numel() for p in net.parameters()) / 1e6,
+                                 time.perf_counter() - t0))
+        dtypes = ("float32", "bfloat16") if size == 300 else ("float32",)
+        for dtype in dtypes:
+            label = "ssd%d_serve%s" % (size, "_bf16" if dtype == "bfloat16" else "")
+            if dtype == "bfloat16":
+                net.cast("bfloat16")
+            batches = (1, SSD_SERVE_BATCH) if size == 300 else (SSD_SERVE_BATCH,)
+            launches[label], nms[label], reports[label] = ssd_serve_path(
+                kernels, net, anchors, size, label, card, batches, dev, seed, base)
+        del net
+        torch.cuda.empty_cache()
+    return launches, nms, reports
+
+
+def ssd_train_path(kernels, size, dtype, card, dev, seed):
+    """One train path at full width: 1 warm-up step, one under
+    ``no_host_sync``, SSD_TIMED timed steps on one seeded batch, each with
+    finite loss parts and no ported kernel launched; masters and momentum
+    fp32; the trunk's first conv and fc7, and at least half the tensors,
+    moved.  -> (launches, report)."""
+    from mxnet_tpu_torch import train_ssd
+    from mxnet_tpu_torch.gluon.model_zoo import SSD300, SSD512, VGGSSD
+
+    label = "ssd%d_train%s" % (size, "_bf16" if dtype else "")
+    batch = SSD_TRAIN_BATCH[size]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # peak memory is counted above it
+    net = VGGSSD(SSD_CLASSES, SSD300 if size == 300 else SSD512, device=dev,
+                 generator=torch.Generator().manual_seed(seed))
+    anchors = net.make_anchors(size)
+    step, state = train_ssd.make_ssd_train_step(net, anchors, batch, learning_rate=SSD_LR,
+                                                compute_dtype=dtype)
+    data, gt = (torch.from_numpy(a).to(dev) for a in ssd_images(size, batch, seed))
+    named = net.gluon_named_tensors()
+    before = {n: t.detach().clone() for n, t in named.items()}
+    expect = {n: 0 for n in kernels.KERNELS}
+
+    def one(what):
+        pre = counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss, parts = step(state, data, gt)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        parts = parts.tolist()
+        if not all(math.isfinite(v) for v in parts) or not parts[0] > 0:
+            fail("%s %s: loss parts %s" % (label, what, parts))
+        got = {n: c - pre[n] for n, c in counts(kernels).items()}
+        if got != expect:
+            fail("%s %s launched %s, expected no ported kernel" % (label, what, got))
+        return ms, parts
+
+    ms, parts = one("warm-up step")
+    say("%s warm-up step: batch %d, %.2f ms, loss parts (cls, loc) %.4f %.4f"
+        % (label, batch, ms, *parts))
+    no_host_sync(lambda: step(state, data, gt), "the %s step" % label)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for i in range(SSD_TIMED):
+        ms, parts = one("step %d" % (i + 1))
+        times.append(ms)
+        say("%s step %d: batch %d, %.2f ms, loss parts (cls, loc) %.4f %.4f"
+            % (label, i + 1, batch, ms, *parts))
+    launches = counts(kernels)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    # a head whose anchors are neither positive nor mined negative in the
+    # batch gets no gradient: only the trunk must move
+    moved = [n for n, t in named.items() if not torch.equal(t, before[n])]
+    need = ["conv2d0_weight", "conv2d14_weight"]
+    if any(n not in moved for n in need) or 2 * len(moved) < len(named):
+        fail("%s: the first conv, fc7 and half the tensors must move; %d moved, still: %s"
+             % (label, len(moved), [n for n in named if n not in moved]))
+    kinds = {(p.dtype, m.dtype) for p, m in zip(*state)}
+    if kinds != {(torch.float32, torch.float32)}:
+        fail("%s: masters and momentum must stay fp32, got %s" % (label, kinds))
+    prof = device_profile(lambda: step(state, data, gt), reps=1, top=6)
+    med = statistics.median(times)
+    say("%s on %s: batch %d, median %.2f ms (%s), %.2f img/s, peak memory %.2f GiB; %s "
+        "kernels a step, device busy %s ms, idle share %s; %d of %d tensors moved; groups %s"
+        % (label, card, batch, med, ", ".join("%.2f" % t for t in times), batch / med * 1e3,
+           peak, prof.get("kernels_per_call"), prof.get("device_busy_ms"),
+           prof.get("idle_share"), len(moved), len(named), json.dumps(prof)))
+    del net, step, state
+    torch.cuda.empty_cache()
+    return launches, dict(ms=med, all_ms=times, img_per_s=batch / med * 1e3, peak_gib=peak,
+                          profile=prof, loss_parts=parts, moved=len(moved), tensors=len(named))
+
+
+def phase_ssd_train(kernels, dev, card):
+    """The SSD train step at full width: SSD300 in fp32 and bf16
+    (``compute_dtype="bfloat16"``, fp32 masters), SSD512 in fp32."""
+    launches, reports = {}, {}
+    for size, dtype, seed in ((300, None, SEED + 53), (300, "bfloat16", SEED + 54),
+                              (512, None, SEED + 55)):
+        label = "ssd%d_train%s" % (size, "_bf16" if dtype else "")
+        launches[label], reports[label] = ssd_train_path(kernels, size, dtype, card, dev, seed)
+    return launches, reports
+
+
+def nms_at_ssd_sizes(kernels, calls):
+    """NMS on the SSD score steps' own calls (per-class ids, ``plus_one``
+    0, at most 400 valid rows an image): each captured call (one batch-16
+    call of each score path, and SSD300's batch-1 requests) bit for bit
+    against the plain version; at SSD300's N = 8,732 (137 words, the staged
+    scan) and SSD512's N = 24,564 (384 words, ``nms_scan_kernel_global``)
+    at batch 16 the kernel's device time, the plain version's, the bound
+    and the device operations of one call.  -> keys for the NMS row."""
+    k = kernels.KERNELS["nms_alive"]
+    for label, cl in calls.items():
+        for args, kw in cl:
+            got, ref = k.wrapper(*args, **kw), k.plain(*args, **kw)
+            torch.cuda.synchronize()
+            compare("nms_alive", got, ref)
+    out = {}
+    for label, scan in (("ssd300_serve", "staged"), ("ssd512_serve", "global")):
+        args, kw = calls[label][0]
+        B, n = args[1].shape
+        words = -(-n // 64)
+        if args[2] is None:
+            fail("%s: the NMS call has no class ids" % label)
+        ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
+        plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
+        alive = k.wrapper(*args, **kw)
+        bound_ms, bound_by = bound(*work("nms_alive", args, alive))
+        ops = device_ops(lambda: k.wrapper(*args, **kw))
+        ran_global = any("nms_scan_kernel_global" in o for o in ops)
+        ran_staged = any("nms_scan_kernel" in o and "global" not in o for o in ops)
+        if (scan == "global") != ran_global or (scan == "staged") != ran_staged:
+            fail("nms at N=%d did not run the %s scan alone: %s" % (n, scan, ops))
+        # the device time of each of the two kernels
+        split = {"mask": "not measured", "scan": "not measured"}
+        prof = device_profile(lambda: k.wrapper(*args, **kw), reps=3, top=4)
+        for kms, _, kname in prof.get("top_kernels_ms_count_name", []):
+            for part, kernel in (("mask", "nms_mask_kernel"), ("scan", "nms_scan_kernel")):
+                if kernel in kname:
+                    split[part] = kms
+        key = label.split("_")[0]
+        say("kernel nms_alive at the %s score size: B %d, N %d, %d words, %d valid and %d "
+            "kept, scratch %.1f MB; %.4f ms (plain %.4f ms; nms_mask_kernel %s ms, %s scan "
+            "%s ms), bound %.6f ms by %s, bit-identical over %d calls; device ops %s" % (
+                key, B, n, words, int(args[1].sum()), int(alive.sum()),
+                B * n * words * 8 / 1e6, ms, plain_ms, split["mask"], scan, split["scan"],
+                bound_ms, bound_by, sum(len(c) for c in calls.values()), ops))
+        out.update({key + "_batch": B, key + "_n": n, key + "_words": words, key + "_ms": ms,
+                    key + "_plain_ms": plain_ms, key + "_bound_ms": bound_ms,
+                    key + "_scan": scan, key + "_mask_kernel_ms": split["mask"],
+                    key + "_scan_kernel_ms": split["scan"]})
+    return out
+
+
+def phase_small_ssd(dev):
+    """The tiny SSD (the JAX example's CPU smoke at width 0.125: 128², 3
+    classes, 1,528 anchors) on the card against the CPU from the same
+    weights, stage by stage as ``phase_small_frcnn``: the forward, then
+    MultiBoxDetection fed the CPU's probabilities and offsets (the devices'
+    forwards differ in the last bits, enough to reorder near-equal scores),
+    the whole score step's answer checked; then one fp32 train step's loss
+    parts and updated weights."""
+    got, ref = small_ssd_card_and_cpu(dev)
+    for k in ("cls_preds", "box_preds"):
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-4,
+                                   atol=1e-4 * float(ref[k].abs().max()),
+                                   msg=lambda m, k=k: "small ssd %s: %s" % (k, m))
+    if not torch.equal(got["det"][..., 0], ref["det"][..., 0]):
+        fail("small ssd: the card's detections' classes differ from the CPU's in %d rows"
+             % int((got["det"][..., 0] != ref["det"][..., 0]).sum()))
+    torch.testing.assert_close(got["det"], ref["det"], rtol=1e-6, atol=1e-6,
+                               msg=lambda m: "small ssd detections: %s" % m)
+    ssd_check(got["score"], 2, 1528, "small ssd score step")
+    torch.testing.assert_close(got["parts"], ref["parts"], rtol=1e-4, atol=1e-5,
+                               msg=lambda m: "small ssd loss parts: %s" % m)
+    for k, r in ref["weights"].items():
+        torch.testing.assert_close(got["weights"][k], r, rtol=1e-4, atol=1e-6,
+                                   msg=lambda m, k=k: "small ssd %s after a step: %s" % (k, m))
+    say("small input, ssd: the card agrees with the CPU on the forward, on every class id of "
+        "MultiBoxDetection (%d kept detections), and over one train step (loss parts %s; "
+        "three updated weights)" % (int((ref["det"][..., 0] >= 0).sum()),
+                                    ", ".join("%.5f" % v for v in got["parts"].tolist())))
+
+
+def small_ssd_card_and_cpu(dev):
+    """The tiny SSD's stages on the card and on the CPU from the same weights
+    and batch: -> (card, cpu) dicts of the forward's outputs, the detections
+    of the CPU's probabilities and offsets, the whole score step's answer,
+    one train step's loss parts and three weights after it (all on the
+    CPU)."""
+    from mxnet_tpu_torch import train_ssd
+    from mxnet_tpu_torch.gluon.model_zoo import VGGSSD
+    from mxnet_tpu_torch.ops import detection as ops_det
+
+    cfg = train_ssd.tiny_config()
+    cpu = VGGSSD(3, cfg, width=0.125, device="cpu",
+                 generator=torch.Generator().manual_seed(SEED))
+    gpu = VGGSSD(3, cfg, width=0.125, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    data, gt = (torch.from_numpy(a) for a in train_ssd.synthetic_voc(
+        np.random.RandomState(SEED), 2, 128, 3))
+    fed = None
+    res = []
+    for net, d in ((cpu, torch.device("cpu")), (gpu, dev)):
+        anchors = net.make_anchors(128)
+        with torch.inference_mode():
+            cls, box = net(data.to(d))
+            if fed is None:
+                fed = (torch.softmax(cls, -1).transpose(1, 2).contiguous(), box)
+            det = ops_det.multibox_detection(fed[0].to(d), fed[1].to(d), anchors[None],
+                                             nms_threshold=0.45, nms_topk=400)
+        out = dict(cls_preds=cls.cpu(), box_preds=box.cpu(), det=det.cpu(),
+                   score=train_ssd.make_score_step(net, anchors)(data.to(d)))
+        step, state = train_ssd.make_ssd_train_step(net, anchors, 2)
+        _, _, parts = step(state, data.to(d), gt.to(d))
+        named = net.gluon_named_tensors()
+        out.update(parts=parts.cpu(), weights={k: named[k].detach().cpu() for k in (
+            "conv2d0_weight", "conv2d14_weight", "conv2d19_weight")})
+        res.append(out)
+    return res[1], res[0]
+
+
 def module_mlp():
     """bench.py main_module's symbol, on the port's frontend."""
     from mxnet_tpu_torch import symbol as sym
@@ -2073,18 +2450,24 @@ def main():
     module_cifar_launches, module_cifar_res = phase("module_cifar", phase_module_cifar,
                                                     kernels, dev, name)
     say("module: %s" % json.dumps({"mlp": module_mlp_res, "cifar": module_cifar_res}))
+    ssd_serve_launches, ssd_nms, ssd_serve = phase("ssd_serve", phase_ssd_serve, kernels, dev,
+                                                   name)
+    ssd_train_launches, ssd_train = phase("ssd_train", phase_ssd_train, kernels, dev, name)
+    say("ssd: %s" % json.dumps({"serve": ssd_serve, "train": ssd_train}))
     launches = {"serve": serve_launches, "train": train_launches,
                 "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
                 "int8": int8_launches, "resnet_train": resnet_launches,
                 "frcnn_serve": frcnn_serve_launches, "frcnn_train": frcnn_train_launches,
                 "frcnn_train_bf16": frcnn_bf16_launches,
                 "frcnn_serve_bf16": frcnn_serve_bf16_launches,
-                "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches}
+                "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches,
+                **ssd_serve_launches, **ssd_train_launches}
 
     def kernel_rows():
         rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
-        next(r for r in rows if r["name"] == "nms_alive").update(
-            nms_at_train_size(kernels, frcnn_nms))
+        nms_row = next(r for r in rows if r["name"] == "nms_alive")
+        nms_row.update(nms_at_train_size(kernels, frcnn_nms))
+        nms_row.update(nms_at_ssd_sizes(kernels, ssd_nms))
         rows += phase_kernels(kernels, net_bf16, launches, bwd_captured_bf16, (), dev,
                               bf16=True)
         edge = int8_edge_calls(kernels, dev)
@@ -2101,6 +2484,7 @@ def main():
 
     rows = phase("kernels", kernel_rows)
     del net, net_bf16, int8_captured, bwd_captured, bwd_captured_bf16, train_nms, frcnn_nms
+    del ssd_nms
     torch.cuda.empty_cache()
     phase("small_input", phase_small_input, dev)
     phase("small_train", phase_small_train, dev)
@@ -2110,6 +2494,7 @@ def main():
     phase("small_int8", phase_small_int8, dev)
     phase("small_frcnn", phase_small_frcnn, dev)
     phase("small_module", phase_small_module, dev)
+    phase("small_ssd", phase_small_ssd, dev)
     say("phases (s): %s" % json.dumps(seconds))
     say("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": rows}), flush=True)

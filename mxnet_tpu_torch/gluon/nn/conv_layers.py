@@ -46,15 +46,18 @@ class Conv2D(HybridBlock):
 
 
 class MaxPool2D(HybridBlock):
-    """2-D max pooling, ``valid`` convention (reference conv_layers.py
-    MaxPool2D with ``ceil_mode=False``)."""
+    """2-D max pooling (reference conv_layers.py MaxPool2D): the output size
+    rounds down (``valid`` convention), or up with ``ceil_mode`` (``full``,
+    the last window padded on the right)."""
 
-    def __init__(self, pool_size=(2, 2), strides=None, padding=0, prefix=None):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0, ceil_mode=False,
+                 prefix=None):
         super().__init__(prefix=prefix)
         pool_size = pair(pool_size)
         self._kwargs = dict(kernel=pool_size,
                             stride=pair(strides) if strides is not None else pool_size,
-                            pad=pair(padding))
+                            pad=pair(padding),
+                            pooling_convention="full" if ceil_mode else "valid")
 
     def _alias(self):
         return "pool"

@@ -1,6 +1,8 @@
-"""Detection operators of the Deformable R-FCN and Faster R-CNN paths
+"""Detection operators of the Deformable R-FCN, Faster R-CNN and SSD paths
 (counterpart of ``mxnet_tpu/ops/detection.py``): deformable convolution,
-deformable PS-ROI pooling, ROI pooling and MultiProposal with greedy NMS.
+deformable PS-ROI pooling, ROI pooling, MultiProposal and Proposal with
+greedy NMS, the SSD MultiBox trio (prior, target, detection), and the
+generic box ops (``box_iou``, ``box_nms``, ``bipartite_matching``).
 
 Layouts are the JAX package's: NCHW maps, rois ``(R, 5)`` as
 ``[batch_idx, x1, y1, x2, y2]``, the ``(BG, N, C)`` dconv column.  The maps
@@ -19,15 +21,19 @@ one kernel launch over all bins.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from . import kernels
 from .nn import pair
+from .registry import register
 
-__all__ = ["deformable_convolution", "deformable_psroi_pooling",
-           "generate_base_anchors", "multi_proposal", "roi_pooling"]
+__all__ = ["bipartite_matching", "box_iou", "box_nms", "deformable_convolution",
+           "deformable_psroi_pooling", "generate_base_anchors", "multi_proposal",
+           "multibox_detection", "multibox_prior", "multibox_target", "proposal",
+           "roi_pooling"]
 
 
 def _float_dtype(op, t):
@@ -529,7 +535,8 @@ def _anchors(stride, scales, ratios, device):
 def _proposals(scores_fg, deltas, im_info, anchors, stride, pre_nms, post_nms,
                thresh, min_size):
     """Batched RPN proposal pipeline (``_proposal_one_image`` with the image
-    as a batch dimension).  -> rois (B, post, 4)."""
+    as a batch dimension).  -> rois (B, post, 4) and their scores (B,
+    post)."""
     B, A, Hf, Wf = scores_fg.shape
     dev = scores_fg.device
     f32 = torch.float32
@@ -602,14 +609,16 @@ def _proposals(scores_fg, deltas, im_info, anchors, stride, pre_nms, post_nms,
     # fewer survivors than post_nms: pad by cycling the kept boxes
     pick = torch.where(slots < out_size[:, None], slots, slots % out_size[:, None])
     idx = torch.gather(keep, 1, pick)
-    return torch.gather(ordered[..., :4], 1, idx[..., None].expand(B, post_nms, 4))
+    picked = torch.gather(ordered, 1, idx[..., None].expand(B, post_nms, 5))
+    return picked[..., :4], picked[..., 4]
 
 
+@register("_contrib_MultiProposal", alias=["MultiProposal"])
 @torch.no_grad()
 def multi_proposal(cls_prob, bbox_pred, im_info, *, rpn_pre_nms_top_n=6000,
                    rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16,
                    scales=(4, 8, 16, 32), ratios=(0.5, 1, 2),
-                   feature_stride=16):
+                   feature_stride=16, output_score=False, iou_loss=False):
     """Batched RPN proposal generation (reference multi_proposal.cc:290-460):
     decode anchor deltas, clip, kill sub-min-size boxes, sort, greedy NMS
     (one ``nms_alive`` launch over the whole batch), emit exactly
@@ -619,8 +628,13 @@ def multi_proposal(cls_prob, bbox_pred, im_info, *, rpn_pre_nms_top_n=6000,
 
     cls_prob (B, 2A, Hf, Wf), bbox_pred (B, 4A, Hf, Wf), im_info (B, 3)
     [height, width, scale].  Returns (B·post, 5) rois
-    ``[batch_idx, x1, y1, x2, y2]``.  Box and score math runs in fp32.
+    ``[batch_idx, x1, y1, x2, y2]`` and, with ``output_score``, their
+    (B·post, 1) scores.  Box and score math runs in fp32.  ``iou_loss``
+    raises, as in the JAX op.
     """
+    if iou_loss:
+        raise NotImplementedError("MultiProposal: iou_loss=True is not supported, "
+                                  "as in the JAX package")
     f32 = torch.float32
     cls_prob = cls_prob.to(f32)
     bbox_pred = bbox_pred.to(f32)
@@ -630,8 +644,361 @@ def multi_proposal(cls_prob, bbox_pred, im_info, *, rpn_pre_nms_top_n=6000,
     B = cls_prob.shape[0]
     A = anchors.shape[0]
     post = int(rpn_post_nms_top_n)
-    rois = _proposals(
+    rois, scores = _proposals(
         cls_prob[:, A:], bbox_pred, im_info, anchors, float(feature_stride),
         int(rpn_pre_nms_top_n), post, float(threshold), float(rpn_min_size))
     batch_col = torch.arange(B, dtype=f32, device=dev).repeat_interleave(post)
-    return torch.cat([batch_col[:, None], rois.reshape(B * post, 4)], dim=1)
+    out = torch.cat([batch_col[:, None], rois.reshape(B * post, 4)], dim=1)
+    if output_score:
+        return out, scores.reshape(B * post, 1)
+    return out
+
+
+# Proposal (reference contrib/proposal.cc) is MultiProposal with the same
+# arguments and numerics, as the JAX op is
+proposal = register("_contrib_Proposal", alias=["Proposal"])(multi_proposal)
+
+
+# ---------------------------------------------------------------------------
+# MultiBox trio (SSD; reference contrib/multibox_{prior,target,detection}.cc)
+# ---------------------------------------------------------------------------
+
+
+def _floats(v):
+    return tuple(float(x) for x in (v if isinstance(v, (tuple, list)) else (v,)))
+
+
+def _times_inverse(x, c):
+    """``x / c`` for a Python constant ``c`` as the jitted JAX ops compute it:
+    XLA's simplifier turns a division by a constant into a product by
+    fp32(1 / fp32(c)), which differs from the division in the last bit of
+    about one value in seven (see ``_roi_bins``)."""
+    return x * float(np.float32(1) / np.float32(c))
+
+
+@register("_contrib_MultiBoxPrior", alias=["MultiBoxPrior"])
+def multibox_prior(data, *, sizes=(1.0,), ratios=(1.0,), clip=False,
+                   steps=(-1.0, -1.0), offsets=(0.5, 0.5)):
+    """SSD anchors (reference multibox_prior.cc:30-70) over ``data``'s (H, W)
+    grid, of which only the shape is read: per cell, ``sizes`` boxes at
+    ratio 1 (width corrected by H/W), then ``ratios[1:]`` at ``sizes[0]``;
+    corner format, normalized coordinates, clipped to [0, 1] with ``clip``.
+    -> (1, H·W·A, 4) float32 on ``data``'s device.
+
+    As in the JAX op, the half-extents are computed in float64 on the host
+    and rounded to fp32 once; the centres are ``(i + offset) · step`` in
+    fp32: the anchors equal the JAX op's bit for bit."""
+    H, W = data.shape[2], data.shape[3]
+    if H <= 0 or W <= 0:
+        raise ValueError("MultiBoxPrior: feature map is %dx%d — input too small "
+                         "for this many downsampling stages" % (H, W))
+    sizes, ratios = _floats(sizes), _floats(ratios)
+    step_y = 1.0 / H if steps[0] <= 0 else float(steps[0])
+    step_x = 1.0 / W if steps[1] <= 0 else float(steps[1])
+    off_y, off_x = float(offsets[0]), float(offsets[1])
+    # per-cell half-extents [w, h]: sizes at ratio 1, then sizes[0] at ratios[1:]
+    hw = [(s * H / W / 2.0, s / 2.0) for s in sizes]
+    hw += [(sizes[0] * H / W * np.sqrt(r) / 2.0, sizes[0] / np.sqrt(r) / 2.0)
+           for r in ratios[1:]]
+    dev = data.device
+    f32 = torch.float32
+    half = torch.as_tensor(np.array(hw, np.float32), device=dev)  # (A, 2)
+    A = half.shape[0]
+    cy = ((torch.arange(H, dtype=f32, device=dev) + off_y) * step_y)[:, None, None]
+    cx = ((torch.arange(W, dtype=f32, device=dev) + off_x) * step_x)[None, :, None]
+    out = torch.stack([(cx - half[:, 0]).expand(H, W, A), (cy - half[:, 1]).expand(H, W, A),
+                       (cx + half[:, 0]).expand(H, W, A), (cy + half[:, 1]).expand(H, W, A)],
+                      dim=-1).reshape(1, -1, 4)
+    return torch.clamp(out, 0.0, 1.0) if clip else out
+
+
+def _box_iou_corner(a, b):
+    """IoU of corner boxes (..., N, 4) × (..., M, 4) -> (..., N, M), no +1
+    (multibox_target-inl.h:158; ``mxnet_tpu/ops/detection.py
+    _box_iou_corner``, in its operation order).  An inverted box's area is
+    negative, as there; a union <= 0 gives 0."""
+    tl = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    br = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = torch.clamp(br - tl, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
+    return torch.where(union <= 0, 0.0, inter / torch.clamp(union, min=1e-12))
+
+
+def _batch_set(t, idx, value):
+    """``t[b, idx[b]] = value[b]`` for every row b of the (B, N) tensor ``t``,
+    on the device (no host synchronisation)."""
+    t.scatter_(1, idx[:, None], value[:, None].to(t.dtype))
+
+
+def _batch_get(t, idx):
+    """``t[b, idx[b]]`` for every row b of the (B, N) tensor ``t``."""
+    return torch.gather(t, 1, idx[:, None])[:, 0]
+
+
+@register("_contrib_MultiBoxTarget", alias=["MultiBoxTarget"])
+@torch.no_grad()
+def multibox_target(anchor, label, cls_pred, *, overlap_threshold=0.5,
+                    ignore_label=-1.0, negative_mining_ratio=-1.0,
+                    negative_mining_thresh=0.5, minimum_negative_samples=0,
+                    variances=(0.1, 0.1, 0.2, 0.2)):
+    """SSD training targets (reference multibox_target.cc:72-270;
+    ``mxnet_tpu/ops/detection.py multibox_target``), the image a batch
+    dimension.
+
+    anchor (1, A, 4) corner boxes; label (B, L, 5) ``[cls, x1, y1, x2,
+    y2]``, the valid labels a prefix (the first row whose class is -1 ends
+    it); cls_pred (B, C, A) class scores.  Stage 1 takes the globally best
+    (anchor, label) pair, ``min(A, L)`` rounds (the first maximum of the
+    flattened (A, L) matrix, as ``jnp.argmax``); stage 2 matches the other
+    anchors above ``overlap_threshold``; stage 3 mines the
+    ``int(positives · negative_mining_ratio)`` hardest negatives (lowest
+    background probability, a stable sort) among anchors below
+    ``negative_mining_thresh``, or takes every other anchor as negative
+    when the ratio is not positive.  -> (loc_target (B, A·4), loc_mask
+    (B, A·4), cls_target (B, A)); class 0 is background and
+    ``ignore_label`` marks the anchors that count for nothing.  An image
+    without a valid label gets neither positives nor negatives.  No
+    gradient: the op runs under ``torch.no_grad()``.  The encoded targets
+    divide by ``variances`` as the jitted JAX op does (``_times_inverse``).
+    """
+    A = anchor.shape[-2]
+    anchors = anchor.reshape(A, 4)
+    B, L, LW = label.shape
+    dev = anchors.device
+    f32 = anchors.dtype
+    vx, vy, vw, vh = _floats(variances)
+    gt_valid = torch.cumprod((label[..., 0] != -1.0).to(torch.int32), dim=1) == 1  # (B, L)
+    num_valid = gt_valid.sum(1)
+    has_gt = (num_valid > 0)[:, None]
+    ious = _box_iou_corner(anchors, label[..., 1:5])                # (B, A, L)
+    ious = torch.where(gt_valid[:, None, :], ious, 0.0)
+
+    # stage 1: bipartite, one (anchor, label) pair a round
+    anchor_matched = torch.zeros((B, A), dtype=torch.bool, device=dev)
+    gt_matched = ~gt_valid  # invalid labels count as matched
+    match_gt = torch.full((B, A), -1, dtype=torch.int64, device=dev)
+    match_iou = torch.full((B, A), -1.0, dtype=f32, device=dev)
+    for _ in range(min(A, L)):
+        m = torch.where(anchor_matched[:, :, None] | gt_matched[:, None, :], -1.0, ious)
+        flat = torch.argmax(m.reshape(B, A * L), dim=1)
+        i, k = flat // L, flat % L
+        best = _batch_get(m.reshape(B, A * L), flat)
+        ok = best > 1e-6
+        _batch_set(anchor_matched, i, _batch_get(anchor_matched, i) | ok)
+        _batch_set(gt_matched, k, _batch_get(gt_matched, k) | ok)
+        _batch_set(match_gt, i, torch.where(ok, k, _batch_get(match_gt, i)))
+        _batch_set(match_iou, i, torch.where(ok, best, _batch_get(match_iou, i)))
+    positive = anchor_matched
+
+    # stage 2: threshold matching for the other anchors
+    best_gt = torch.argmax(ious, dim=2)
+    best_iou = torch.gather(ious, 2, best_gt[..., None])[..., 0]
+    if overlap_threshold > 0:
+        thr_pos = ~positive & (best_iou > overlap_threshold) & has_gt
+        match_gt = torch.where(thr_pos, best_gt, match_gt)
+        match_iou = torch.where(thr_pos, best_iou, match_iou)
+        positive = positive | thr_pos
+    num_positive = positive.sum(1)
+
+    # stage 3: negatives
+    cand_iou = torch.where(positive, match_iou, best_iou)
+    if negative_mining_ratio > 0:
+        # jax.nn.softmax's steps, background row only
+        x = cls_pred.to(f32)
+        e = torch.exp(x - x.amax(dim=1, keepdim=True))
+        prob_bg = e[:, 0] / e.sum(dim=1)                           # (B, A)
+        cand = ~positive & (cand_iou < negative_mining_thresh)
+        num_neg = torch.minimum(
+            torch.clamp((num_positive * negative_mining_ratio).to(torch.int32),
+                        min=int(minimum_negative_samples)),
+            (A - num_positive).to(torch.int32))
+        key = torch.where(cand, -prob_bg, -1e30)
+        order = torch.argsort(-key, dim=1, stable=True)  # candidates, lowest prob first
+        rank = torch.empty_like(order).scatter_(
+            1, order, torch.arange(A, device=dev).expand(B, A))
+        negative = cand & (rank < num_neg[:, None])
+    else:
+        negative = ~positive
+    negative = negative & has_gt
+    positive = positive & has_gt
+
+    # targets, encoded against the matched labels
+    g = torch.gather(label, 1, torch.clamp(match_gt, 0, L - 1)[..., None].expand(B, A, LW))
+    aw = anchors[:, 2] - anchors[:, 0]
+    ah = anchors[:, 3] - anchors[:, 1]
+    ax = (anchors[:, 0] + anchors[:, 2]) * 0.5
+    ay = (anchors[:, 1] + anchors[:, 3]) * 0.5
+    gw = g[..., 3] - g[..., 1]
+    gh = g[..., 4] - g[..., 2]
+    gx = (g[..., 1] + g[..., 3]) * 0.5
+    gy = (g[..., 2] + g[..., 4]) * 0.5
+    loc = torch.stack([_times_inverse((gx - ax) / aw, vx),
+                       _times_inverse((gy - ay) / ah, vy),
+                       _times_inverse(torch.log(torch.clamp(gw / aw, min=1e-12)), vw),
+                       _times_inverse(torch.log(torch.clamp(gh / ah, min=1e-12)), vh)],
+                      dim=-1)                                       # (B, A, 4)
+    pos4 = positive[..., None]
+    loc_target = torch.where(pos4, loc, 0.0).reshape(B, A * 4)
+    loc_mask = pos4.expand(B, A, 4).to(f32).reshape(B, A * 4)
+    cls_t = torch.where(positive, g[..., 0] + 1.0,
+                        torch.where(negative, 0.0, float(ignore_label)))
+    return loc_target, loc_mask, cls_t
+
+
+@register("_contrib_MultiBoxDetection", alias=["MultiBoxDetection"])
+@torch.no_grad()
+def multibox_detection(cls_prob, loc_pred, anchor, *, clip=True, threshold=0.01,
+                       background_id=0, nms_threshold=0.5, force_suppress=False,
+                       variances=(0.1, 0.1, 0.2, 0.2), nms_topk=-1):
+    """SSD decode and per-class NMS (reference multibox_detection.cc:83-190;
+    ``mxnet_tpu/ops/detection.py multibox_detection``), the image a batch
+    dimension.
+
+    cls_prob (B, C, A) float32 probabilities, class 0 the background (as
+    in the JAX op, ``background_id`` is not read); loc_pred (B, A·4)
+    offsets; anchor (1, A, 4).  Each anchor takes its best foreground class
+    (-1 below ``threshold``); the decoded boxes are clipped to [0, 1] with
+    ``clip``, sorted by score (stable) and cut to the first ``nms_topk``;
+    then greedy NMS at ``nms_threshold`` among boxes of one class (of all
+    classes with ``force_suppress``): one ``nms_alive`` launch for the
+    batch.  -> (B, A, 6) rows ``[class_id, score, x1, y1, x2, y2]``, valid
+    rows first by score; a suppressed row keeps its score and box with
+    class -1, and a row past the valid ones is all -1."""
+    B, C, A = cls_prob.shape
+    vx, vy, vw, vh = _floats(variances)
+    anchors = anchor.reshape(A, 4)
+    aw = anchors[:, 2] - anchors[:, 0]
+    ah = anchors[:, 3] - anchors[:, 1]
+    ax = (anchors[:, 0] + anchors[:, 2]) * 0.5
+    ay = (anchors[:, 1] + anchors[:, 3]) * 0.5
+
+    fg = cls_prob[:, 1:]
+    score = fg.amax(dim=1)                                          # (B, A)
+    cid = torch.argmax(fg, dim=1).to(cls_prob.dtype)  # 0-based class id
+    cid = torch.where(score < threshold, -1.0, cid)
+    lp = loc_pred.reshape(B, A, 4)
+    ox = lp[..., 0] * vx * aw + ax
+    oy = lp[..., 1] * vy * ah + ay
+    ow = torch.exp(lp[..., 2] * vw) * aw * 0.5
+    oh = torch.exp(lp[..., 3] * vh) * ah * 0.5
+    coords = [ox - ow, oy - oh, ox + ow, oy + oh]
+    if clip:
+        coords = [torch.clamp(v, 0.0, 1.0) for v in coords]
+    valid = cid >= 0
+    # valid detections by score, highest first; the others sink to the end
+    order = torch.argsort(-torch.where(valid, score, -math.inf), dim=1, stable=True)
+    cid, score, valid = (torch.gather(v, 1, order) for v in (cid, score, valid))
+    boxes = torch.gather(torch.stack(coords, dim=-1), 1, order[..., None].expand(B, A, 4))
+    if nms_topk > 0:
+        valid = valid & (torch.arange(A, device=valid.device) < nms_topk)
+        cid = torch.where(valid, cid, torch.where(cid >= 0, -1.0, cid))
+    if 0 < nms_threshold <= 1:
+        alive = kernels.nms_alive(boxes, cid >= 0, None if force_suppress else cid,
+                                  thresh=nms_threshold, plus_one=0.0)
+        cid = torch.where(alive | (cid < 0), cid, -1.0)
+    row = torch.cat([cid[..., None], score[..., None], boxes], dim=-1)
+    return torch.where(valid[..., None], row, -1.0)
+
+
+# ---------------------------------------------------------------------------
+# Generic box ops (reference contrib/bounding_box-inl.h)
+# ---------------------------------------------------------------------------
+
+
+def _to_corner(box):
+    x, y, w, h = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+    return torch.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], dim=-1)
+
+
+def _to_center(box):
+    x1, y1, x2, y2 = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
+
+
+@register("_contrib_box_iou", alias=["box_iou"])
+def box_iou(lhs, rhs, *, format="corner"):
+    """Pairwise IoU (reference bounding_box-inl.h BoxOverlapForward): lhs
+    (..., N, 4) × rhs (..., M, 4) -> (..., N, M), the leading dimensions
+    paired as the JAX op's ``vmap`` pairs them; ``format`` "corner" or
+    "center" (x, y, w, h)."""
+    if format == "center":
+        lhs, rhs = _to_corner(lhs), _to_corner(rhs)
+    N, M = lhs.shape[-2], rhs.shape[-2]
+    out = _box_iou_corner(lhs.reshape(-1, N, 4), rhs.reshape(-1, M, 4))
+    return out.reshape(*lhs.shape[:-2], N, M) if lhs.dim() > 2 else out[0]
+
+
+@register("_contrib_box_nms", alias=["box_nms", "_contrib_box_non_maximum_suppression"])
+@torch.no_grad()
+def box_nms(data, *, overlap_thresh=0.5, valid_thresh=0.0, topk=-1, coord_start=2,
+            score_index=1, id_index=-1, force_suppress=False, in_format="corner",
+            out_format="corner"):
+    """Greedy NMS over rows (reference bounding_box-inl.h BoxNMSForward):
+    data (..., N, K) float32, each row a score at ``score_index``, four
+    coordinates from ``coord_start`` (``in_format`` "corner" or "center")
+    and, with ``id_index`` >= 0, a class id: only boxes of one id suppress
+    each other unless ``force_suppress``.  Rows with a score above
+    ``valid_thresh`` are sorted by score (stable), the first ``topk`` kept,
+    and one ``nms_alive`` launch over every leading index settles them.
+    -> the same shape: surviving rows by score, coordinates in
+    ``out_format``; the other rows -1."""
+    shape = data.shape
+    N, K = shape[-2], shape[-1]
+    if N == 0:
+        return data
+    cs, si = int(coord_start), int(score_index)
+    flat = data.reshape(-1, N, K)
+    score = flat[..., si]
+    valid = score > valid_thresh
+    order = torch.argsort(-torch.where(valid, score, -math.inf), dim=1, stable=True)
+    d = torch.gather(flat, 1, order[..., None].expand(-1, -1, K))
+    valid = torch.gather(valid, 1, order)
+    if topk > 0:
+        valid = valid & (torch.arange(N, device=data.device) < topk)
+    boxes = d[..., cs:cs + 4]
+    if in_format == "center":
+        boxes = _to_corner(boxes)
+    ids = d[..., id_index] if id_index >= 0 and not force_suppress else None
+    alive = kernels.nms_alive(boxes.contiguous(), valid, ids, thresh=overlap_thresh,
+                              plus_one=0.0)
+    out = d
+    if out_format != in_format:
+        conv = _to_corner if out_format == "corner" else _to_center
+        out = torch.cat([d[..., :cs], conv(d[..., cs:cs + 4]), d[..., cs + 4:]], dim=-1)
+    return torch.where((alive & valid)[..., None], out, -1.0).reshape(shape)
+
+
+@register("_contrib_bipartite_matching", alias=["bipartite_matching"])
+@torch.no_grad()
+def bipartite_matching(data, *, threshold, is_ascend=False, topk=-1):
+    """Greedy bipartite matching (reference bounding_box-inl.h
+    BipartiteMatchingForward): data (..., N, M) scores; each round takes
+    the best remaining pair (the first of the flattened matrix, highest
+    score or with ``is_ascend`` lowest) while it passes ``threshold``, up
+    to ``topk`` rounds (``min(N, M)`` when not positive).  -> (row_match
+    (..., N), col_match (..., M)) in data's dtype, -1 where unmatched."""
+    shape = data.shape
+    N, M = shape[-2], shape[-1]
+    flat = data.reshape(-1, N, M)
+    Bf = flat.shape[0]
+    dev = data.device
+    s = flat * (1.0 if is_ascend else -1.0)  # lowest first
+    rows = torch.full((Bf, N), -1.0, dtype=data.dtype, device=dev)
+    cols = torch.full((Bf, M), -1.0, dtype=data.dtype, device=dev)
+    rn = torch.arange(N, device=dev)
+    cn = torch.arange(M, device=dev)
+    k = min(N, M) if topk <= 0 else min(topk, N, M)
+    for _ in range(k):
+        f = torch.argmin(s.reshape(Bf, N * M), dim=1)
+        i, j = f // M, f % M
+        d = _batch_get(flat.reshape(Bf, N * M), f)
+        passes = d <= threshold if is_ascend else d >= threshold
+        ok = (_batch_get(s.reshape(Bf, N * M), f) < math.inf) & passes
+        _batch_set(rows, i, torch.where(ok, j.to(data.dtype), _batch_get(rows, i)))
+        _batch_set(cols, j, torch.where(ok, i.to(data.dtype), _batch_get(cols, j)))
+        taken = (rn[None, :, None] == i[:, None, None]) | (cn[None, None, :] == j[:, None, None])
+        s = torch.where(ok[:, None, None] & taken, math.inf, s)
+    return rows.reshape(shape[:-1]), cols.reshape(*shape[:-2], M)

@@ -13,8 +13,9 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel here has
   it launches its kernel, and nowhere else.
 
 The int8 pair (``quantize_int8``, ``dequantize_int8``) also takes ``meta``
-tensors to its plain version, which computes nothing: the symbolic
-frontend's shape inference runs the operators on them.
+tensors to its plain version, which computes nothing, and ``nms_alive``
+returns an empty ``meta`` mask for them: the symbolic frontend's shape
+inference runs the operators on them.
 
 Two of the TPU kernels are dtype-generic, and so are their counterparts
 here: the dconv pair takes a bfloat16 ``ft`` (and ``g``), and the A-build
@@ -122,7 +123,9 @@ def nms_alive_plain(boxes, valid, ids=None, *, thresh, plus_one=1.0):
     Each tile of score-ordered boxes settles its survivors by iterating the
     intra-tile suppression map to its fixed point, then kills the later
     boxes they overlap.  Survivors equal the sequential greedy scan's for
-    any tile size.
+    any tile size.  A tile with no live box in any image settles nothing
+    and kills nothing, and is skipped (SSD's detections are valid only in
+    their first ``nms_topk`` rows).
     """
     B, N = boxes.shape[:2]
     dev = boxes.device
@@ -136,12 +139,14 @@ def nms_alive_plain(boxes, valid, ids=None, *, thresh, plus_one=1.0):
     alive[:, :N] = valid
     ids_p = None if ids is None else torch.nn.functional.pad(ids, (0, Np - N))
     area = box_area(boxes_p, plus_one)
-    later_than = torch.arange(Np, device=dev)
     intra_lt = (torch.arange(T, device=dev)[:, None]
                 < torch.arange(T, device=dev)[None, :])  # [j, i]: j < i
     for k in range(nb):
         sl = slice(k * T, (k + 1) * T)
+        later = slice((k + 1) * T, Np)
         tb, tarea, ta = boxes_p[:, sl], area[:, sl], alive[:, sl]
+        if not bool(ta.any()):
+            continue
         # sup[b, j, i]: j would suppress i (j earlier in score order)
         sup = (iou_mat(tb, tarea, tb, tarea, plus_one) > thresh) & intra_lt
         if ids_p is not None:
@@ -151,12 +156,11 @@ def nms_alive_plain(boxes, valid, ids=None, *, thresh, plus_one=1.0):
         cur = ta & ~(sup & ta[:, :, None]).any(1)
         while bool((prev != cur).any()):
             prev, cur = cur, ta & ~(sup & cur[:, :, None]).any(1)
-        cross = ((iou_mat(tb, tarea, boxes_p, area, plus_one) > thresh)
-                 & cur[:, :, None])
+        cross = ((iou_mat(tb, tarea, boxes_p[:, later], area[:, later], plus_one)
+                  > thresh) & cur[:, :, None])
         if ids_p is not None:
-            cross &= tid[:, :, None] == ids_p[:, None, :]
-        hit = cross.any(1)
-        alive = alive & ~((later_than >= (k + 1) * T) & hit)
+            cross &= tid[:, :, None] == ids_p[:, None, later]
+        alive[:, later] &= ~cross.any(1)
         alive[:, sl] = cur
     return alive[:, :N]
 
@@ -182,6 +186,8 @@ def nms_alive(boxes, valid, ids=None, *, thresh, plus_one=1.0):
     if dev.type == "cpu":
         return nms_alive_plain(boxes, valid, ids, thresh=thresh,
                                plus_one=plus_one)
+    if dev.type == "meta":  # shape inference: the mask's shape, no values
+        return torch.empty((B, N), dtype=torch.bool, device=dev)
     _require(dev.type == "cuda", "nms_alive: unsupported device %s" % dev)
     idf = None if ids is None else ids.to(torch.float32).contiguous()
     _contiguous("nms_alive", boxes=boxes, valid=valid)

@@ -10,8 +10,10 @@ The symbolic frontend (``mxnet_tpu_torch.symbol``) builds its ``sym.*``
 functions from these entries, reads the tensor-argument names for
 ``list_arguments``, and infers shapes by running the functions on ``meta``
 tensors.  Only the operators of the ported paths are registered: those of
-the ResNet symbol, the ``bench.py`` Module MLP, Dropout, and int8
-post-training quantization.
+the ResNet symbol, the ``bench.py`` Module MLP, Dropout, int8
+post-training quantization, and the SSD and proposal detection ops.  An
+op's ``alias`` names (``MultiBoxPrior`` for ``_contrib_MultiBoxPrior``)
+reach the same entry.
 """
 from __future__ import annotations
 
@@ -59,15 +61,18 @@ class OpDef:
         return "OpDef(%s)" % self.name
 
 
-def register(name, aux=(), inputs_fn=None, infer_params=None, aux_update=None):
-    """Decorator: register ``fn`` as operator ``name``.  The function itself
-    is returned unchanged."""
+def register(name, alias=(), aux=(), inputs_fn=None, infer_params=None,
+             aux_update=None):
+    """Decorator: register ``fn`` as operator ``name``, also reached by the
+    names in ``alias``.  The function itself is returned unchanged."""
 
     def _reg(fn):
-        if name in _REGISTRY:
-            raise ValueError("duplicate op registration: %s" % name)
-        _REGISTRY[name] = OpDef(name, fn, aux=aux, inputs_fn=inputs_fn,
-                                infer_params=infer_params, aux_update=aux_update)
+        opdef = OpDef(name, fn, aux=aux, inputs_fn=inputs_fn,
+                      infer_params=infer_params, aux_update=aux_update)
+        for key in (name,) + tuple(alias):
+            if key in _REGISTRY:
+                raise ValueError("duplicate op registration: %s" % key)
+            _REGISTRY[key] = opdef
         return fn
 
     return _reg

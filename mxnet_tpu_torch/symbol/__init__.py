@@ -10,7 +10,7 @@ bind a graph on a device (see :mod:`mxnet_tpu_torch.executor`); ``load`` /
 import sys
 import types
 
-from ..ops import elemwise, matrix, nn, quantization, reduce  # noqa: F401  (register the ops)
+from ..ops import detection, elemwise, matrix, nn, quantization, reduce  # noqa: F401  (register the ops)
 from ..ops import registry as _registry
 from .symbol import (Group, NameManager, Symbol, Variable, _make_sym_op_func, load,
                      load_json, var)

@@ -604,18 +604,24 @@ def test_bf16_dconv_bwd_kernel_edges_match_plain(cuda, shape, g_layout):
     assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
 
 
-def _device_ops(fn):
+def _device_ops(fn, tries=3):
     """The device operations (kernels, memsets, copies) of one ``fn()``,
-    from the profiler: {name: count}."""
+    from the profiler: {name: count}.  A session that recorded no device
+    operation at all is taken again, up to ``tries`` times: the card
+    machine's profiler has returned an empty session for a call whose
+    kernel ran (as ``chip_smoke.py device_ops``)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     ops = {}
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            ops[evt.key] = ops.get(evt.key, 0) + evt.count
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                ops[evt.key] = ops.get(evt.key, 0) + evt.count
+        if ops:
+            break
     return ops
 
 
@@ -948,3 +954,117 @@ def test_cifar_resnet8_module_step_card_against_cpu(cuda):
         moved = r - start[0].get(k, start[1].get(k))
         torch.testing.assert_close(got[k], r, rtol=1e-4, atol=1e-4 * float(moved.abs().max()),
                                    msg=lambda m, k=k: "%s: %s" % (k, m))
+
+
+def _ssd_nms_inputs(rng, B, n, valid_rows):
+    """NMS inputs as SSD's score step gives them: normalized corner boxes
+    clustered around a few objects, 20 float class ids (-1 on invalid
+    rows), and valid rows either the first 400 (the step's top-k) or a
+    random half."""
+    ctr = rng.uniform(0.1, 0.9, (B, 16, 2))
+    c = np.take_along_axis(ctr, rng.randint(0, 16, (B, n))[..., None], axis=1)
+    c = c + rng.normal(0, 0.02, (B, n, 2))
+    wh = rng.uniform(0.05, 0.4, (B, n, 2))
+    boxes = np.clip(np.concatenate([c - wh / 2, c + wh / 2], -1), 0, 1)
+    if valid_rows == "topk":
+        valid = np.broadcast_to(np.arange(n) < 400, (B, n)).copy()
+    else:
+        valid = rng.rand(B, n) < 0.5
+    ids = np.where(valid, rng.randint(0, 20, (B, n)), -1).astype(np.float32)
+    return (torch.from_numpy(boxes.astype(np.float32)), torch.from_numpy(valid),
+            torch.from_numpy(ids))
+
+
+# SSD300's and SSD512's anchor counts: the staged scan and, above ~14,000
+# boxes, nms_scan_kernel_global
+@pytest.mark.parametrize("n", [8732, 24564])
+@pytest.mark.parametrize("valid_rows", ["topk", "half"])
+def test_nms_kernel_on_ssd_inputs(cuda, n, valid_rows):
+    rng = np.random.RandomState(n + len(valid_rows))
+    boxes, valid, ids = (t.to(cuda) for t in _ssd_nms_inputs(rng, 3, n, valid_rows))
+    for idv in (ids, None):
+        got = kernels.nms_alive(boxes, valid, idv, thresh=0.45, plus_one=0.0)
+        ref = kernels.nms_alive_plain(boxes, valid, idv, thresh=0.45, plus_one=0.0)
+        assert torch.equal(got, ref)
+        assert 0 < int(got.sum()) < int(valid.sum())
+
+
+def test_ssd_ops_launch_the_kernel_and_never_the_plain(cuda, monkeypatch):
+    """multibox_detection (per class and forced) and box_nms on the card:
+    one nms_alive launch a call for the batch, never the plain version."""
+    from mxnet_tpu_torch.ops import detection as tdet
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain NMS ran on CUDA tensors")
+
+    monkeypatch.setattr(kernels, "nms_alive_plain", refuse)
+    rng = np.random.RandomState(2)
+    A = 1528
+    anc = torch.from_numpy(np.sort(rng.uniform(0, 1, (1, A, 2, 2)), axis=2)
+                           .transpose(0, 1, 3, 2).reshape(1, A, 4).astype(np.float32)).to(cuda)
+    prob = torch.softmax(torch.from_numpy(rng.randn(2, 4, A).astype(np.float32)), 1).to(cuda)
+    loc = torch.from_numpy((rng.randn(2, A * 4) * 0.3).astype(np.float32)).to(cuda)
+    for force in (False, True):
+        kernels.reset_launches()
+        out = tdet.multibox_detection(prob, loc, anc, nms_threshold=0.45, nms_topk=400,
+                                      force_suppress=force)
+        assert kernels.nms_alive.launches == 1 and out.shape == (2, A, 6)
+    data = torch.cat([torch.randint(0, 3, (2, 50, 1)).float(), torch.rand(2, 50, 1),
+                      torch.rand(2, 50, 2) * 0.5, torch.rand(2, 50, 2) * 0.5 + 0.5], -1)
+    kernels.reset_launches()
+    out = tdet.box_nms(data.to(cuda), overlap_thresh=0.3, id_index=0, topk=20)
+    assert kernels.nms_alive.launches == 1 and out.shape == (2, 50, 6)
+    assert {n: k.wrapper.launches for n, k in kernels.KERNELS.items()} == \
+        {n: int(n == "nms_alive") for n in kernels.KERNELS}
+
+
+def test_tiny_ssd_card_against_cpu(cuda):
+    """The tiny SSD (the JAX example's CPU smoke at width 0.125: 128², 3
+    classes, 1,528 anchors, batch 2) on the card against the CPU from the
+    same weights: the forward; MultiBoxDetection fed the CPU's probabilities
+    and offsets (the devices' forwards differ in the last bits, enough to
+    reorder near-equal scores); the whole score step (one NMS launch); one
+    fp32 train step's loss parts and updated weights (no ported kernel)."""
+    from mxnet_tpu_torch import train_ssd
+    from mxnet_tpu_torch.gluon.model_zoo import VGGSSD
+    from mxnet_tpu_torch.ops import detection as tdet
+
+    cfg = train_ssd.tiny_config()
+    cpu = VGGSSD(3, cfg, width=0.125, device="cpu",
+                 generator=torch.Generator().manual_seed(3))
+    gpu = VGGSSD(3, cfg, width=0.125, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    data, gt = (torch.from_numpy(a) for a in train_ssd.synthetic_voc(
+        np.random.RandomState(3), 2, 128, 3))
+    res, fed = [], None
+    for net, d in ((cpu, "cpu"), (gpu, cuda)):
+        anchors = net.make_anchors(128)
+        with torch.inference_mode():
+            cls, box = net(data.to(d))
+            if fed is None:
+                fed = (torch.softmax(cls, -1).transpose(1, 2).contiguous(), box)
+            det = tdet.multibox_detection(fed[0].to(d), fed[1].to(d), anchors[None],
+                                          nms_threshold=0.45, nms_topk=400)
+        kernels.reset_launches()
+        score = train_ssd.make_score_step(net, anchors)(data.to(d))
+        serve = {n: k.wrapper.launches for n, k in kernels.KERNELS.items()}
+        step, state = train_ssd.make_ssd_train_step(net, anchors, 2)
+        kernels.reset_launches()
+        _, _, parts = step(state, data.to(d), gt.to(d))
+        train = {n: k.wrapper.launches for n, k in kernels.KERNELS.items()}
+        named = net.gluon_named_tensors()
+        res.append((cls.cpu(), box.cpu(), det.cpu(), score.cpu(), parts.cpu(),
+                    {k: named[k].detach().cpu() for k in
+                     ("conv2d0_weight", "conv2d14_weight", "conv2d19_weight")}, serve, train))
+    ref, got = res
+    for g, r in zip(got[:2], ref[:2]):  # the forward
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+    assert torch.equal(got[2][..., 0], ref[2][..., 0])
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=1e-6)
+    assert got[3].shape == (2, 1528, 6) and bool(torch.isfinite(got[3]).all())
+    assert ((got[3][..., 1] >= 0).sum(1) == 400).all()
+    assert got[6] == {n: int(n == "nms_alive") for n in kernels.KERNELS}
+    assert not any(got[7].values())
+    torch.testing.assert_close(got[4], ref[4], rtol=1e-4, atol=1e-5)
+    for k, r in ref[5].items():
+        torch.testing.assert_close(got[5][k], r, rtol=1e-4, atol=1e-6)

@@ -272,7 +272,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 port / "lr_scheduler.py", port / "optimizer.py", port / "metric.py",
                 port / "ndarray.py", port / "model.py", port / "callback.py",
                 port / "module" / "__init__.py", port / "module" / "base_module.py",
-                port / "module" / "module.py"):
+                port / "module" / "module.py", port / "train_ssd.py",
+                port / "gluon" / "model_zoo" / "ssd.py"):
         assert new in files
     for f in files:
         for mod in _imports(f):
