@@ -102,6 +102,30 @@ Phases, in order; any failure exits non-zero:
    the plain version and times it at
    N 8,732 (the staged scan) and N 24,564 (``nms_scan_kernel_global``),
    checking which scan ran;
+8d. predictor: bench.py's ``MXNET_BENCH=predictor`` (the deploy twin of
+   ``test_utils.deploy_twin_checkpoint``, batch 16, 32x32) as an fp32
+   ``Predictor`` and its ``with_precision("bf16")`` and calibrated
+   ``with_precision("int8", calibrate(...))`` twins: each tier's first
+   forward (the plan's build) timed apart, then 3 windows of 200 forwards
+   (ms a forward, samples/s) under ``set_sync_debug_mode("error")``, one
+   profile (kernels a forward, busy, idle share), the pass rows, ``check()``
+   (warnings at most), and each twin within its tier's tolerance of the
+   fp32 outputs; no ported kernel.  ``predictor_resnet``: ResNet-50 v2
+   (INT8's symbol) written to files and served through ``Predictor`` at
+   batch 1 and 32, fp32, bf16 tier and int8 tier (calibrated on 4 batches
+   of 8), the same numbers plus peak memory, the bf16 tier's folded
+   BatchNorms and cast nodes, the int8 tier's sites, and fc1's logits of
+   each twin against fp32's on 32 images: relative L2 errors, plain and
+   centred on the batch mean, gated at ``LOGIT_LIMITS``, which must reject
+   two broken controls (top-1 agreement reported, not gated); then
+   ``quantize_model``'s int8 symbol (naive, fc1 excluded) written to files
+   and served through ``Predictor``: one ``quantize_int8`` per int8
+   quantize node and one ``dequantize_int8`` per dequantize node of int8
+   input a forward, no host sync, outputs equal bit for bit to a bare
+   ``Executor`` of the same symbol with the graph passes off (its launches
+   are not the path's and are taken out of the phase's count, which must
+   equal launches a forward times the Predictors' forwards), and the pass
+   rows;
 9. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
    with the same weights and the same noise, with frozen BatchNorm and with
@@ -113,7 +137,9 @@ Phases, in order; any failure exits non-zero:
    CIFAR ResNet-8 from the same weights (loss, two weights' updates, a
    moving variance); the tiny SSD (128², 1,528 anchors) stage by stage
    (forward, MultiBoxDetection on the CPU's probabilities), its score step,
-   and one train step's loss parts and weights.
+   and one train step's loss parts and weights; the tiny deploy twin and
+   a CIFAR ResNet-8 v2 as Predictors in the three tiers (fp32 within rtol
+   1e-4, the twins within their tier's tolerance).
 
 Each phase prints its seconds, and the run its total, before the last two
 lines.
@@ -211,6 +237,25 @@ SSD_CLASSES, SSD_LR = 20, 1e-3
 SSD_TRAIN_BATCH = {300: 8, 512: 4}
 SSD_SERVE_BATCH, SSD_REQUESTS, SSD_TIMED = 16, 3, 3
 SSD_TOPK = 400
+# bench.py MXNET_BENCH=predictor (main_predictor): the deploy twin of
+# test_utils.deploy_twin_checkpoint at batch 16, 32x32, inputs U(0, 1) from
+# RandomState(0), 200 forwards after the first; the int8 twin calibrated on
+# 4 batches; each tier timed over 3 windows of 200 forwards
+PREDICTOR_BATCH, PREDICTOR_IMAGE, PREDICTOR_ITERS, PREDICTOR_WINDOWS = 16, 32, 200, 3
+PREDICTOR_CALIB = 4
+TIERS = ("fp32", "bf16", "int8")
+# ResNet-50 v2 (INT8's symbol) served through Predictor from files at
+# INT8_BATCHES, each tier over 3 windows of 50 forwards; the int8 tier and
+# quantize_model calibrated as INT8_CALIB
+PREDICTOR_RESNET_ITERS = 50
+# fc1's logits of each ResNet-50 tier against fp32's: limits on the relative
+# L2 error and on that of the logits centred on their batch mean (the part
+# that depends on the image; with these random weights it is ~4% of the
+# logits' norm).  On an H100 the readings were bf16 (0.0056, 0.109) and
+# int8 (0.024, 0.446); the broken controls of resnet_tier_logits read
+# (0.042, 1.44) for another image's logits and (0.279, 0.839) for the int8
+# twin of a table with halved ranges, and the gate rejects both.
+LOGIT_LIMITS = {"bf16": (0.02, 0.3), "int8": (0.08, 0.65)}
 
 
 def fail(msg):
@@ -2404,6 +2449,394 @@ def phase_small_module(dev):
         "(loss %.6f / %.6f; %s updates; %s)" % (got_loss, ref_loss, ", ".join(names), var))
 
 
+def predictor_windows(pred, x, iters, windows):
+    """ms a forward over ``windows`` windows of ``iters`` forwards each (host
+    clock, each window ended by a synchronize, as bench.py counts them);
+    every forward runs under ``set_sync_debug_mode("error")``."""
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            for _ in range(iters):
+                pred.forward(data=x)
+        except RuntimeError as e:
+            fail("a Predictor forward synchronised the host: %s" % e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / iters)
+    return out
+
+
+def pass_rows(pred):
+    """(pass, nodes in, nodes out) of a predictor's inference plan."""
+    return [(r["pass"], r["nodes_in"], r["nodes_out"])
+            for r in pred.pass_stats()["eval"]["passes"]]
+
+
+def check_clean(pred, what):
+    """``pred.check()`` must hold warnings at most -> its codes, counted."""
+    from mxnet_tpu_torch.analysis import worst_severity
+
+    diags = pred.check()
+    if worst_severity(diags) not in (None, "warning"):
+        fail("%s: check() found %s" % (what, [str(d) for d in diags if d.severity != "warning"]))
+    codes = {}
+    for d in diags:
+        codes[d.code] = codes.get(d.code, 0) + 1
+    return codes
+
+
+def serve_tier(kernels, pred, x, what, iters, windows, base=None):
+    """Serve one predictor: its first forward (the plan's build) timed apart,
+    outputs finite, and within the tier's tolerance of ``base`` (the fp32
+    outputs) where given; then ``windows`` windows of ``iters`` forwards
+    (no host sync), one profile, and no ported kernel launched.
+    -> (report, outputs)."""
+    from mxnet_tpu_torch.graph_passes import precision
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = pred.forward(data=x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    outs = [o.clone() for o in outs]
+    for i, o in enumerate(outs):
+        if not bool(torch.isfinite(o).all()):
+            fail("%s: output %d has non-finite values" % (what, i))
+    err = None
+    if base is not None:
+        tol = precision.tier_tolerance(pred.precision_tier)
+        err = max(float((a.float() - b).abs().max()) for a, b in zip(outs, base))
+        for a, b in zip(outs, base):
+            torch.testing.assert_close(a.float(), b, **tol,
+                                       msg=lambda m: "%s against fp32: %s" % (what, m))
+    ms = predictor_windows(pred, x, iters, windows)
+    prof = device_profile(lambda: pred.forward(data=x))
+    launched = counts(kernels)
+    if any(launched.values()):
+        fail("%s launched %s" % (what, launched))
+    med = statistics.median(ms)
+    rep = dict(first_forward_s=first_s, ms=med, ms_windows=ms,
+               samples_per_s=x.shape[0] * 1e3 / med, max_abs_err_vs_fp32=err,
+               kernels_per_forward=prof.get("kernels_per_call"),
+               device_busy_ms=prof.get("device_busy_ms"), idle_share=prof.get("idle_share"),
+               device_ms_by_group=prof.get("device_ms_by_group"), passes=pass_rows(pred),
+               check=check_clean(pred, what))
+    say("%s: first forward %.3f s; %.4f ms a forward (windows %s), %.1f samples/s; "
+        "%s kernels a forward, busy %s ms, idle share %s; max |x - fp32| %s; passes %s; "
+        "check %s" % (what, first_s, med, ", ".join("%.4f" % t for t in ms),
+                      rep["samples_per_s"], rep["kernels_per_forward"], rep["device_busy_ms"],
+                      rep["idle_share"], err, rep["passes"], rep["check"]))
+    return rep, outs
+
+
+def phase_predictor(kernels, dev, card):
+    """bench.py MXNET_BENCH=predictor on the card: the deploy twin as an fp32
+    Predictor and its bf16 and calibrated int8 twins (PREDICTOR_BATCH)."""
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.graph_passes import precision
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.test_utils import deploy_twin_checkpoint
+
+    b, im = PREDICTOR_BATCH, PREDICTOR_IMAGE
+    with sym.NameManager():
+        net, params, shapes = deploy_twin_checkpoint(batch=b, image=im)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(b, 3, im, im).astype(np.float32)).to(dev)
+    pred = Predictor(net, params, shapes)
+    res = {}
+    res["fp32"], base = serve_tier(kernels, pred, x, "predictor fp32", PREDICTOR_ITERS,
+                                   PREDICTOR_WINDOWS)
+    t0 = time.perf_counter()
+    table = precision.calibrate(pred, ({"data": rng.rand(b, 3, im, im).astype(np.float32)}
+                                       for _ in range(PREDICTOR_CALIB)))
+    calib_s = time.perf_counter() - t0
+    for tier in TIERS[1:]:
+        twin = pred.with_precision(tier, table if tier == "int8" else None)
+        res[tier], _ = serve_tier(kernels, twin, x, "predictor %s" % tier, PREDICTOR_ITERS,
+                                  PREDICTOR_WINDOWS, base)
+        if tier == "int8":
+            res[tier]["int8_sites"] = len(twin.int8_sites)
+            res[tier]["calibrate_s"] = calib_s
+    say("predictor (bench.py MXNET_BENCH=predictor, batch %d, %dx%d) on %s: %s" % (
+        b, im, im, card, json.dumps({t: {k: res[t][k] for k in ("ms", "samples_per_s",
+                                                                 "kernels_per_forward",
+                                                                 "idle_share")}
+                                     for t in TIERS})))
+    return res
+
+
+def plan_int8_nodes(exe):
+    """(int8 quantize nodes, dequantize nodes of int8 input) of the plan an
+    executor runs for inference, from its walk on meta tensors."""
+    from mxnet_tpu_torch.analysis import executor_context
+    from mxnet_tpu_torch.analysis.graph_analyzers import _abstract_walk
+
+    ctx = executor_context(exe)
+    dts = {n: v.dtype for n, v in ctx.arg_avals.items()}
+    _abstract_walk(ctx.graph, ctx,
+                   record=lambda node, nm, shape, dtype, vals, ins: dts.__setitem__(nm, dtype))
+    plan = ctx.graph.entries
+    return (sum(n.op.name == "_contrib_quantize" and n.attrs.get("out_type") == "int8"
+                for n, _ in plan),
+            sum(n.op.name == "_contrib_dequantize" and dts[ins[0]] == torch.int8
+                for n, ins in plan))
+
+
+def save_checkpoint(directory, prefix, net, args, aux):
+    """``prefix-symbol.json`` and ``prefix.params`` (``arg:`` / ``aux:``
+    keys) under ``directory`` -> their paths."""
+    from mxnet_tpu_torch import ndarray
+
+    sfile, pfile = "%s/%s-symbol.json" % (directory, prefix), "%s/%s.params" % (directory, prefix)
+    net.save(sfile)
+    ndarray.save(pfile, {**{"arg:" + k: v for k, v in args.items()},
+                         **{"aux:" + k: v for k, v in aux.items()}})
+    return sfile, pfile
+
+
+def resnet_tier_logits(sfile, pfile, data, table, image):
+    """fc1's logits of each twin against fp32's on ``data`` (a partial-output
+    Predictor of the same files; the softmax of random weights saturates):
+    the relative L2 error and that of the logits centred on their batch
+    mean, gated at LOGIT_LIMITS, and two broken controls that each tier's
+    gate must reject: fp32's logits of another image (the batch rolled by
+    one) and the int8 twin of a table whose ranges are halved (every
+    activation scale half the calibrated one).  Top-1 agreement is
+    reported, not gated: with these weights the images may all share one
+    top class."""
+    from mxnet_tpu_torch.graph_passes import precision
+    from mxnet_tpu_torch.predictor import Predictor
+
+    fp32 = Predictor(sfile, pfile, {"data": tuple(data.shape)}, output_names=["fc1"])
+    ref = fp32.forward(data=data)[0].float().clone()
+
+    def centred(t):
+        return t - t.mean(0, keepdim=True)
+
+    def err(got):
+        return dict(rel_l2_err=float((got - ref).norm() / ref.norm()),
+                    centred_rel_l2_err=float((centred(got) - centred(ref)).norm()
+                                             / centred(ref).norm()),
+                    top1_agreement=float((got.argmax(1) == ref.argmax(1)).float().mean()))
+
+    def within(e, limits):
+        return e["rel_l2_err"] <= limits[0] and e["centred_rel_l2_err"] <= limits[1]
+
+    out = {"fp32_logit_absmax": float(ref.abs().max()),
+           "fp32_top1_classes": len(set(ref.argmax(1).tolist()))}
+    for tier in TIERS[1:]:
+        out[tier] = err(fp32.with_precision(tier, table if tier == "int8" else None)
+                        .forward(data=data)[0].float())
+    halved = precision.CalibrationTable(
+        {k: (lo / 2, hi / 2) for k, (lo, hi) in table.ranges.items()}, table.batches)
+    out["controls"] = {"another image": err(ref.roll(1, 0)),
+                       "int8 twin, ranges halved": err(
+                           fp32.with_precision("int8", halved).forward(data=data)[0].float())}
+    say("predictor_resnet fc1 logits against fp32 on %d images: %s" % (
+        data.shape[0], json.dumps(out)))
+    for tier, limits in LOGIT_LIMITS.items():
+        if not within(out[tier], limits):
+            fail("predictor_resnet %s: fc1 logits' errors %s beyond the limits %s"
+                 % (tier, out[tier], limits))
+        for name, e in out["controls"].items():
+            if within(e, limits):
+                fail("predictor_resnet %s: the control (%s) errs by %s, within the limits %s: "
+                     "the gate cannot tell a broken twin" % (tier, name, e, limits))
+    return out
+
+
+def phase_predictor_resnet(kernels, dev, card):
+    """ResNet-50 v2 (INT8's symbol) served through Predictor from files at
+    INT8_BATCHES: fp32, the bf16 tier and the int8 tier, then
+    ``quantize_model``'s int8 symbol served the same way and held bit for bit
+    against a bare Executor with the graph passes off.  -> (launch counts
+    over the phase, report)."""
+    import os
+    import tempfile
+
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.graph_passes import precision
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.models import resnet_symbol
+    from mxnet_tpu_torch.predictor import Predictor
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    with sym.NameManager():
+        net = resnet_symbol.get_symbol(**INT8)
+    image = tuple(int(v) for v in INT8["image_shape"].split(","))
+    args, aux = resnet_params(net, (1,) + image, gen, dev)
+    n_batches, per_batch = INT8_CALIB
+    calib = torch.randn((n_batches * per_batch,) + image, generator=gen).to(dev)
+    data = torch.randn((max(INT8_BATCHES),) + image, generator=gen).to(dev)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sfile, pfile = save_checkpoint(tmp, "resnet50_v2", net, args, aux)
+        base = Predictor(sfile, pfile, {"data": (per_batch,) + image})
+        t0 = time.perf_counter()
+        table = precision.calibrate(base, ({"data": calib[i * per_batch:(i + 1) * per_batch]}
+                                           for i in range(n_batches)))
+        calib_s = time.perf_counter() - t0
+        struct = [getattr(n.op, "name", "") for n, _ in base._exec._structural_plan(False)[0]]
+        for batch in INT8_BATCHES:
+            x = data[:batch]
+            fp32 = base.with_shapes({"data": (batch,) + image})
+            outs = {}
+            for tier in TIERS:
+                pred = fp32 if tier == "fp32" else fp32.with_precision(
+                    tier, table if tier == "int8" else None)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                rep, out = serve_tier(kernels, pred, x, "predictor_resnet %s batch %d" % (
+                    tier, batch), PREDICTOR_RESNET_ITERS, PREDICTOR_WINDOWS)
+                rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                rep["resident_before_gib"] = before / 2**30
+                outs[tier] = out[0]
+                if tier != "fp32":
+                    rep["max_abs_err_vs_fp32"] = float((out[0].float() - outs["fp32"]).abs().max())
+                    rep["top1_agreement"] = float(
+                        (out[0].argmax(1) == outs["fp32"].argmax(1)).float().mean())
+                plan = [getattr(n.op, "name", "") for n, _ in pred._exec._opt_plan(False)[0]]
+                if tier == "bf16":
+                    rep["folded_batchnorms"] = struct.count("_bn_affine") - plan.count("_bn_affine")
+                    rep["cast_nodes"] = plan.count("_precision_cast")
+                if tier == "int8":
+                    rep["int8_sites"] = len(pred.int8_sites)
+                    rep["calibrate_s"] = calib_s
+                res["%s_batch%d" % (tier, batch)] = rep
+                say("predictor_resnet %s batch %d: peak %.3f GiB (%.3f resident before)%s" % (
+                    tier, batch, rep["peak_gib"], rep["resident_before_gib"],
+                    "".join("; %s %s" % (k, rep[k]) for k in (
+                        "top1_agreement", "max_abs_err_vs_fp32", "folded_batchnorms",
+                        "cast_nodes", "int8_sites") if k in rep)))
+                del pred
+            del fp32, outs
+        del base
+        res["logits_vs_fp32"] = resnet_tier_logits(sfile, pfile, data, table, image)
+        torch.cuda.empty_cache()
+
+        # quantize_model's int8 symbol, deployed
+        qsym, qargs, qaux = quantize_model(
+            net, args, aux, device=dev, excluded_sym_names=["fc1"], calib_mode="naive",
+            calib_data=NDArrayIter(calib, batch_size=per_batch))
+        qfile, qpfile = save_checkpoint(tmp, "resnet50_v2_int8", qsym, qargs, qaux)
+        kernels.reset_launches()
+        bare_launched = dict.fromkeys(counts(kernels), 0)  # the references', taken out
+        expect = dict.fromkeys(counts(kernels), 0)         # launches a forward x forwards
+        for batch in INT8_BATCHES:
+            x = data[:batch]
+            pred = Predictor(qfile, qpfile, {"data": (batch,) + image})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.forward(data=x)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            n_q, n_dq = plan_int8_nodes(pred._exec)
+            if (n_q, n_dq) != int8_nodes(qsym, (batch,) + image):
+                fail("the passes changed the int8 quantize / dequantize nodes: %s -> %s"
+                     % (int8_nodes(qsym, (batch,) + image), (n_q, n_dq)))
+            before = counts(kernels)
+            out = no_host_sync(lambda: pred.forward(data=x)[0].clone(),
+                               "the quantize_model deploy's forward")
+            got = {n: c - before[n] for n, c in counts(kernels).items()}
+            if got != only(got, quantize_int8=n_q, dequantize_int8=n_dq):
+                fail("the quantize_model deploy at batch %d launched %s, expected "
+                     "quantize_int8 %d and dequantize_int8 %d" % (batch, got, n_q, n_dq))
+            before = counts(kernels)
+            os.environ["MXNET_GRAPH_PASSES"] = "0"
+            try:
+                bare = bind(qsym, qargs, qaux, batch, dev, image)
+            finally:
+                del os.environ["MXNET_GRAPH_PASSES"]
+            ref = bare.forward(data=x)[0]
+            if bare.pass_stats() or not torch.equal(out, ref):
+                fail("the quantize_model deploy at batch %d differs from the bare executor "
+                     "in %d values" % (batch, int((out != ref).sum())))
+            for n, c in counts(kernels).items():
+                bare_launched[n] += c - before[n]
+            ms = predictor_windows(pred, x, PREDICTOR_RESNET_ITERS, PREDICTOR_WINDOWS)
+            reps = 3
+            prof = device_profile(lambda: pred.forward(data=x), reps=reps)
+            # the first forward, the one under no_host_sync, the windows, the profile
+            forwards = 2 + PREDICTOR_RESNET_ITERS * PREDICTOR_WINDOWS + reps
+            for n in expect:
+                expect[n] += got[n] * forwards
+            rep = dict(first_forward_s=first_s, ms=statistics.median(ms), ms_windows=ms,
+                       samples_per_s=batch * 1e3 / statistics.median(ms),
+                       launches_per_forward={k: got[k] for k in INT8_PAIR},
+                       kernels_per_forward=prof.get("kernels_per_call"),
+                       device_busy_ms=prof.get("device_busy_ms"),
+                       idle_share=prof.get("idle_share"), passes=pass_rows(pred),
+                       check=check_clean(pred, "the quantize_model deploy"))
+            res["quantize_model_batch%d" % batch] = rep
+            say("predictor_resnet quantize_model deploy batch %d: equal bit for bit to the "
+                "bare executor (passes off); launches a forward %s; first forward %.3f s; "
+                "%.3f ms a forward (windows %s); %s kernels, busy %s ms, idle share %s; "
+                "passes %s" % (batch, rep["launches_per_forward"], first_s, rep["ms"],
+                               ", ".join("%.3f" % t for t in ms), rep["kernels_per_forward"],
+                               rep["device_busy_ms"], rep["idle_share"], rep["passes"]))
+            del pred, bare
+    # the Predictor's own launches: the bare executors' reference forwards
+    # are not the path's
+    launches = {n: c - bare_launched[n] for n, c in counts(kernels).items()}
+    if launches != expect:
+        fail("the quantize_model deploy's Predictors launched %s over the phase, expected "
+             "%s (launches a forward x forwards)" % (launches, expect))
+    res["quantize_model_launches"] = launches
+    say("predictor_resnet on %s: %s" % (card, json.dumps(res)))
+    return launches, res
+
+
+def phase_small_predictor(dev):
+    """The tiny deploy twin and a CIFAR ResNet-8 v2 as Predictors on the card
+    against the CPU from the same weights, each tier's int8 twin from one
+    table calibrated on the CPU: fp32 within rtol 1e-4, the twins within
+    their tier's tolerance."""
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.graph_passes import precision
+    from mxnet_tpu_torch.models import resnet_symbol
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.test_utils import deploy_twin_checkpoint
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 15)
+    with sym.NameManager():
+        twin, twin_params, twin_shapes = deploy_twin_checkpoint(batch=2, image=16, seed=SEED + 15)
+    with sym.NameManager():
+        res8 = resnet_symbol.get_symbol(10, 8, "3,32,32")
+    args, aux = resnet_params(res8, (1, 3, 32, 32), gen, cpu)
+    res8_params = {**{"arg:" + k: v for k, v in args.items()},
+                   **{"aux:" + k: v for k, v in aux.items()}}
+    worst = {}
+    for name, net, params, shapes in (("deploy twin", twin, twin_params, twin_shapes),
+                                      ("CIFAR ResNet-8", res8, res8_params,
+                                       {"data": (4, 3, 32, 32)})):
+        shape = shapes["data"]
+        x = torch.rand(shape, generator=gen)
+        preds = {d: Predictor(net, params, shapes, device=d) for d in (cpu, dev)}
+        table = precision.calibrate(preds[cpu], [{"data": torch.rand(shape, generator=gen)}
+                                                 for _ in range(2)])
+        for tier in TIERS:
+            outs = [[o.float().cpu() for o in preds[d].with_precision(
+                tier, table if tier == "int8" else None).forward(data=x.to(d))]
+                for d in (cpu, dev)]
+            tol = dict(rtol=1e-4, atol=1e-6) if tier == "fp32" else \
+                precision.tier_tolerance(tier)
+            for ref, got in zip(*outs):
+                torch.testing.assert_close(got, ref, **tol, msg=lambda m: "small predictor "
+                                           "%s %s: %s" % (name, tier, m))
+            worst["%s %s" % (name, tier)] = max(float((g - r).abs().max())
+                                                for r, g in zip(*outs))
+    say("small input, predictor: the deploy twin and CIFAR ResNet-8 v2, fp32 / bf16 / int8 "
+        "tiers, card against CPU, max |card - CPU| %s" % json.dumps(worst))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -2454,6 +2887,10 @@ def main():
                                                    name)
     ssd_train_launches, ssd_train = phase("ssd_train", phase_ssd_train, kernels, dev, name)
     say("ssd: %s" % json.dumps({"serve": ssd_serve, "train": ssd_train}))
+    predictor_res = phase("predictor", phase_predictor, kernels, dev, name)
+    predictor_resnet_launches, predictor_resnet_res = phase(
+        "predictor_resnet", phase_predictor_resnet, kernels, dev, name)
+    say("predictor: %s" % json.dumps({"twin": predictor_res, "resnet": predictor_resnet_res}))
     launches = {"serve": serve_launches, "train": train_launches,
                 "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
                 "int8": int8_launches, "resnet_train": resnet_launches,
@@ -2461,7 +2898,8 @@ def main():
                 "frcnn_train_bf16": frcnn_bf16_launches,
                 "frcnn_serve_bf16": frcnn_serve_bf16_launches,
                 "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches,
-                **ssd_serve_launches, **ssd_train_launches}
+                **ssd_serve_launches, **ssd_train_launches,
+                "predictor_resnet": predictor_resnet_launches}
 
     def kernel_rows():
         rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
@@ -2495,6 +2933,7 @@ def main():
     phase("small_frcnn", phase_small_frcnn, dev)
     phase("small_module", phase_small_module, dev)
     phase("small_ssd", phase_small_ssd, dev)
+    phase("small_predictor", phase_small_predictor, dev)
     say("phases (s): %s" % json.dumps(seconds))
     say("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": rows}), flush=True)

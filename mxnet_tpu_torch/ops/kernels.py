@@ -12,10 +12,12 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  Each kernel here has
 * ``<wrapper>.launches``, a plain integer that the wrapper adds one to where
   it launches its kernel, and nowhere else.
 
-The int8 pair (``quantize_int8``, ``dequantize_int8``) also takes ``meta``
-tensors to its plain version, which computes nothing, and ``nms_alive``
-returns an empty ``meta`` mask for them: the symbolic frontend's shape
-inference runs the operators on them.
+Every wrapper also takes ``meta`` tensors (shapes and dtypes without
+storage, PyTorch's counterpart of ``jax.eval_shape``): it returns empty
+``meta`` outputs of the right shapes and dtypes, launches nothing and
+counts nothing.  The symbolic frontend's shape inference and the graph
+analyzers' abstract walk (``analysis/graph_analyzers.py``) run the
+operators on them.
 
 Two of the TPU kernels are dtype-generic, and so are their counterparts
 here: the dconv pair takes a bfloat16 ``ft`` (and ``g``), and the A-build
@@ -186,7 +188,7 @@ def nms_alive(boxes, valid, ids=None, *, thresh, plus_one=1.0):
     if dev.type == "cpu":
         return nms_alive_plain(boxes, valid, ids, thresh=thresh,
                                plus_one=plus_one)
-    if dev.type == "meta":  # shape inference: the mask's shape, no values
+    if dev.type == "meta":  # shape and dtype only, no launch
         return torch.empty((B, N), dtype=torch.bool, device=dev)
     _require(dev.type == "cuda", "nms_alive: unsupported device %s" % dev)
     idf = None if ids is None else ids.to(torch.float32).contiguous()
@@ -273,10 +275,12 @@ def _dconv_col(name, entry, y0, y1, x0, x1, ly, lx, lf, ft, shape):
     dev = _same_device(name, y0, y1, x0, x1, ly, lx, lf, ft)
     if dev.type == "cpu":
         return dconv_col_plain(y0, y1, x0, x1, ly, lx, lf, ft, (H, W))
-    _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
-    _contiguous(name, y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx, lf=lf, ft=ft)
     C = ft.shape[2]
     col = _col_empty(BG, N, C, dev, ft.dtype)
+    if dev.type == "meta":  # shape and dtype only, no launch
+        return col
+    _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
+    _contiguous(name, y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx, lf=lf, ft=ft)
     if col.numel() == 0:
         return col
     tensors = (y0, y1, x0, x1, ly, lx, lf, ft, col)
@@ -408,6 +412,9 @@ def _dconv_col_bwd(name, entry, y0, y1, x0, x1, ly, lx, lf, ft, g, shape, layout
     dev = _same_device(name, y0, y1, x0, x1, ly, lx, lf, ft, g)
     if dev.type == "cpu":
         return dconv_col_bwd_plain(y0, y1, x0, x1, ly, lx, lf, ft, g, (H, W))
+    if dev.type == "meta":  # shape and dtype only, no launch
+        return (*(torch.empty((BG, N), dtype=torch.float32, device=dev)
+                  for _ in range(3)), torch.empty_like(ft))
     _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
     _contiguous(name, y0=y0, y1=y1, x0=x0, x1=x1, ly=ly, lx=lx, lf=lf, ft=ft)
     if BG * N == 0 or C == 0:  # nothing to launch: every sum is empty
@@ -513,6 +520,8 @@ def _psroi_abuild(name, entry, yv, xv, out_dtype):
     dev = _same_device(name, yv, xv)
     if dev.type == "cpu":
         return psroi_abuild_plain(yv, xv, out_dtype)
+    if dev.type == "meta":  # shape and dtype only, no launch
+        return torch.empty((N, H, W), dtype=out_dtype, device=dev)
     _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
     _contiguous(name, yv=yv, xv=xv)
     _require(S * (H + W) * 4 <= 227 * 1024, "%s: S*(H+W) too large "
@@ -575,6 +584,8 @@ def _psroi_abuild_bwd(name, entry, yv, xv, g, shape):
     dev = _same_device(name, yv, xv, g)
     if dev.type == "cpu":
         return psroi_abuild_bwd_plain(yv, xv, g)
+    if dev.type == "meta":  # shape and dtype only, no launch
+        return torch.empty_like(yv), torch.empty_like(xv)
     _require(dev.type == "cuda", "%s: unsupported device %s" % (name, dev))
     _contiguous(name, yv=yv, xv=xv, g=g)
     _require(((H + S) * (W + 1) + S * H) * 4 <= 227 * 1024,
@@ -658,6 +669,8 @@ def quantize_int8(x, real_range):
     real_range a 0-d float32 tensor on x's device, read by the kernel on the
     device.  Returns int8 of x's shape."""
     dev = _int8_pair_check("quantize_int8", x, torch.float32, real_range)
+    if dev.type == "meta":  # shape and dtype only, no launch
+        return torch.empty(x.shape, dtype=torch.int8, device=dev)
     if dev.type != "cuda":
         return quantize_int8_plain(x, real_range)
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
@@ -682,6 +695,8 @@ def dequantize_int8(q, real_range):
     shape; real_range a 0-d float32 tensor on q's device.  Returns float32
     of q's shape."""
     dev = _int8_pair_check("dequantize_int8", q, torch.int8, real_range)
+    if dev.type == "meta":  # shape and dtype only, no launch
+        return torch.empty(q.shape, dtype=torch.float32, device=dev)
     if dev.type != "cuda":
         return dequantize_int8_plain(q, real_range)
     x = torch.empty(q.shape, dtype=torch.float32, device=dev)

@@ -10,6 +10,7 @@ attributes, and the ``_*_params`` rules give the parameter shapes.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -73,36 +74,70 @@ def _softmax_output_label_shape(attrs, shapes):
     return {"label": tuple(d[:-1])}
 
 
+def _dtype(name):
+    """A dtype attribute ("float32", "bfloat16") -> the torch dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, str(name))
+
+
+def _contraction_exit(out, bias, no_bias, accum_dtype, out_dtype, bshape):
+    """The tail of a dense layer or convolution: the product widened to
+    ``accum_dtype`` where a bias is added in it, the bias added, the sum
+    narrowed to ``out_dtype``.  (Without a bias, widening and narrowing a
+    bf16 product back gives the same bits, so neither runs.)"""
+    if no_bias or bias is None:
+        target = out_dtype or accum_dtype
+        return out if target is None else out.to(_dtype(target))
+    if accum_dtype is not None:
+        out = out.to(_dtype(accum_dtype))
+    out = out + bias.reshape(bshape)
+    if out_dtype is not None:
+        out = out.to(_dtype(out_dtype))
+    return out
+
+
 @register("FullyConnected", inputs_fn=_fc_inputs, infer_params=_fc_params)
 def fully_connected(data, weight, bias=None, *, num_hidden, no_bias=False,
-                    flatten=True):
+                    flatten=True, accum_dtype=None, out_dtype=None):
     """Dense layer (reference src/operator/nn/fully_connected.cc) on data
     flattened to 2-D, or with ``flatten=False`` on its last axis; weight
-    (num_hidden, in_dim)."""
+    (num_hidden, in_dim).
+
+    ``accum_dtype`` / ``out_dtype`` are the precision tier's hooks
+    (``graph_passes/precision.py``, as in ``mxnet_tpu/ops/nn.py``): the bf16
+    pass sets ``accum_dtype="float32"`` on bf16 operands, whose product
+    cuBLAS sums in fp32 (``context.full_fp32`` keeps its reduced-precision
+    reduction off) and rounds once to bf16; the bias is then added in fp32
+    and ``out_dtype="bfloat16"`` narrows the result.  The JAX op keeps the
+    fp32 accumulator through the bias add (``preferred_element_type``): the
+    two differ by that one rounding.  Unset, nothing changes."""
     x = data.reshape(data.shape[0], -1) if flatten else data
     if weight.shape != (num_hidden, x.shape[-1]):
         raise ValueError("FullyConnected: weight %s does not match "
                          "num_hidden=%d and input width %d"
                          % (tuple(weight.shape), num_hidden, x.shape[-1]))
-    out = torch.matmul(x, weight.T)
-    if not no_bias and bias is not None:
-        out = out + bias
-    return out
+    return _contraction_exit(torch.matmul(x, weight.T), bias, no_bias,
+                             accum_dtype, out_dtype, (-1,))
 
 
 @register("Convolution", inputs_fn=_fc_inputs, infer_params=_conv_params)
 def convolution(data, weight, bias=None, *, kernel, num_filter, stride=(1, 1),
-                dilate=(1, 1), pad=(0, 0), no_bias=False):
+                dilate=(1, 1), pad=(0, 0), no_bias=False, accum_dtype=None,
+                out_dtype=None):
     """2-D convolution with stride, pad and dilation (reference
     src/operator/nn/convolution.cc; ``mxnet_tpu/ops/nn.py convolution``).
-    weight (num_filter, C, kh, kw)."""
+    weight (num_filter, C, kh, kw).  ``accum_dtype`` / ``out_dtype`` as in
+    :func:`fully_connected`: cuDNN sums bf16 products in fp32 and rounds
+    once to bf16, then the bias is added in ``accum_dtype``."""
     if tuple(weight.shape[2:]) != pair(kernel) or weight.shape[0] != num_filter:
         raise ValueError("Convolution: weight %s does not match kernel=%s, "
                          "num_filter=%d" % (tuple(weight.shape), kernel,
                                             num_filter))
-    b = None if no_bias else bias
-    return F.conv2d(data, weight, b, stride=pair(stride), padding=pair(pad),
-                    dilation=pair(dilate))
+    conv = functools.partial(F.conv2d, data, weight, stride=pair(stride),
+                             padding=pair(pad), dilation=pair(dilate))
+    if accum_dtype is None and out_dtype is None:
+        return conv(None if no_bias else bias)
+    return _contraction_exit(conv(None), bias, no_bias, accum_dtype, out_dtype,
+                             (1, -1, 1, 1))
 
 
 @register("BatchNorm", aux=("moving_mean", "moving_var"), infer_params=_bn_params,
@@ -246,8 +281,11 @@ def dropout(data, *, p=0.5, axes=(), training=False, keep=None, generator=None):
                                                        device=data.device))
 
 
-def softmax(data, *, axis=-1):
-    """Softmax along ``axis`` (reference src/operator/nn/softmax.cc).
+@register("softmax")
+def softmax(data, *, axis=-1, temperature=None, length=None):
+    """Softmax along ``axis`` (reference src/operator/nn/softmax.cc;
+    ``mxnet_tpu/ops/nn.py softmax``).  A ``temperature`` other than 1 divides
+    the data first; ``length`` (masked softmax) is not ported.
 
     In bf16 or fp16 it takes ``jax.nn.softmax``'s steps, each rounded to
     the dtype as the JAX op rounds them: x − max, exp, a sum accumulated in
@@ -255,6 +293,10 @@ def softmax(data, *, axis=-1):
     end, and its bf16 probabilities then differ from the JAX op's by an ulp
     in about a third of the entries: enough to reorder RPN scores that tie
     in bf16."""
+    if length is not None:
+        raise NotImplementedError("softmax: length= is not ported")
+    if temperature not in (None, 1.0):
+        data = data / torch.full((), temperature, dtype=data.dtype, device=data.device)
     if data.dtype not in (torch.bfloat16, torch.float16):
         return torch.softmax(data, dim=axis)
     e = torch.exp(data - data.amax(dim=axis, keepdim=True))

@@ -30,7 +30,7 @@ class OpDef:
     ``name`` is the MXNet op name, ``fn`` the function, ``hint`` the stem of
     its automatic node names, ``arg_names`` its tensor arguments in order,
     ``attr_names`` its attributes (keyword-only parameters) and
-    ``defaults`` the defaults among the tensor arguments.  ``aux`` names
+    ``defaults`` the defaults of both.  ``aux`` names
     the tensor arguments that are auxiliary states (BatchNorm's moving
     statistics); ``inputs_fn(attrs)`` lists the tensor arguments that these
     attributes need (no bias under ``no_bias``); ``infer_params(attrs,
@@ -53,7 +53,7 @@ class OpDef:
         positional = [p for p in params if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
         self.arg_names = [p.name for p in positional]
         self.attr_names = [p.name for p in params if p.kind == inspect.Parameter.KEYWORD_ONLY]
-        self.defaults = {p.name: p.default for p in positional
+        self.defaults = {p.name: p.default for p in params
                          if p.default is not inspect.Parameter.empty}
         self.__doc__ = fn.__doc__
 

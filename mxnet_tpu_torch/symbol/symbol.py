@@ -273,25 +273,28 @@ class Symbol:
                         _named(args_grad, names, "args_grad", dev),
                         grad_req, _named(aux_states, aux_names, "aux_states", dev))
 
-    def simple_bind(self, device=None, grad_req="write", **shapes):
+    def simple_bind(self, device=None, grad_req="write", type_dict=None, **shapes):
         """Allocate every argument and auxiliary state from shape inference,
         zero-filled on ``device``, and bind (reference symbol.py:1287).
         Gradient buffers are allocated for every argument unless
         ``grad_req`` is ``"null"``; ``grad_req`` as ``bind``.
 
         ``device`` is None (CUDA), a string or a ``torch.device``; without
-        CUDA it raises unless ``device="cpu"``.  Variables marked with a
-        dtype (the int8 weights of a quantized symbol) are allocated in it.
+        CUDA it raises unless ``device="cpu"``.  ``type_dict`` maps variable
+        names to their dtypes ("bfloat16", "int8", a torch dtype), for shape
+        and dtype inference and allocation; otherwise a variable marked with
+        a dtype (the int8 weights of a quantized symbol) takes it, the rest
+        float32.
         """
         from ..executor import Executor
 
         dev = resolve_device(device)
-        metas = self._arg_metas(shapes)
+        metas = self._arg_metas(shapes, type_dict)
         alloc = lambda n: torch.zeros(metas[n].shape, dtype=metas[n].dtype, device=dev)
         names = self.list_arguments()
         grads = None if grad_req == "null" else {n: alloc(n) for n in names}
-        return Executor(self, dev, {n: alloc(n) for n in names}, grads, grad_req,
-                        {n: alloc(n) for n in self.list_auxiliary_states()})
+        return Executor(self, dev, {n: alloc(n) for n in names}, grads,
+                        grad_req, {n: alloc(n) for n in self.list_auxiliary_states()})
 
     # -- serialization --------------------------------------------------------
     def tojson(self):
@@ -316,10 +319,10 @@ class Symbol:
         with open(fname, "w") as f:
             f.write(self.tojson())
 
-    def _arg_metas(self, shapes):
+    def _arg_metas(self, shapes, type_dict=None):
         """{name: meta tensor} of every argument and auxiliary state, in the
         shape and dtype that ``simple_bind`` allocates."""
-        metas = _infer_graph(self, {k: tuple(v) for k, v in shapes.items()})
+        metas = _infer_graph(self, {k: tuple(v) for k, v in shapes.items()}, type_dict)
         names = self.list_arguments() + self.list_auxiliary_states()
         missing = [n for n in names if n not in metas]
         if missing:
@@ -444,14 +447,18 @@ def load_json(json_str):
     return heads[0] if len(heads) == 1 else Group(heads)
 
 
-def _infer_graph(sym, known_shapes):
+def _infer_graph(sym, known_shapes, type_dict=None):
     """Walk the graph once on ``meta`` tensors -> {environment name: meta
     tensor} for every variable and node output whose shape follows from
     ``known_shapes``.  Parameter variables get their shapes from the
-    consuming op's ``infer_params`` rule."""
+    consuming op's ``infer_params`` rule, and their dtypes from
+    ``type_dict`` (name -> dtype or its name), their dtype mark, or
+    float32."""
+    types = {n: t if isinstance(t, torch.dtype) else getattr(torch, str(t))
+             for n, t in (type_dict or {}).items()}
     metas = {}
-    meta = lambda shape, var: torch.empty(shape, dtype=var._dtype_hint or torch.float32,
-                                          device="meta")
+    meta = lambda shape, var: torch.empty(
+        shape, dtype=types.get(var.name) or var._dtype_hint or torch.float32, device="meta")
     for node in sym._walk():
         if node.is_var:
             if node.name in known_shapes:

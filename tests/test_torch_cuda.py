@@ -1068,3 +1068,167 @@ def test_tiny_ssd_card_against_cpu(cuda):
     torch.testing.assert_close(got[4], ref[4], rtol=1e-4, atol=1e-5)
     for k, r in ref[5].items():
         torch.testing.assert_close(got[5][k], r, rtol=1e-4, atol=1e-6)
+
+
+def _twin_predictor(device, batch=2, image=16):
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.test_utils import deploy_twin_checkpoint
+
+    with tsym.NameManager():
+        net, params, shapes = deploy_twin_checkpoint(batch=batch, image=image)
+    return Predictor(net, params, shapes, device=device)
+
+
+def test_deploy_twin_tiers_card_against_cpu(cuda):
+    """The deploy twin as an fp32 Predictor and its bf16 and calibrated int8
+    twins (one table for both devices) on the card against the CPU: fp32
+    within rtol 1e-4, the twins within their tier's tolerance; each twin
+    within its tolerance of the card's fp32; no ported kernel launched."""
+    from mxnet_tpu_torch.graph_passes import precision
+
+    rng = np.random.RandomState(21)
+    x = torch.from_numpy(rng.rand(2, 3, 16, 16).astype(np.float32))
+    calib = [{"data": rng.rand(2, 3, 16, 16).astype(np.float32)} for _ in range(3)]
+    cpu = _twin_predictor("cpu")
+    table = precision.calibrate(cpu, calib)
+    outs = {}
+    for dev in ("cpu", cuda):
+        base = _twin_predictor(dev)
+        kernels.reset_launches()
+        for tier in ("fp32", "bf16", "int8"):
+            p = base.with_precision(tier, table if tier == "int8" else None)
+            outs[(str(dev), tier)] = [o.float().cpu() for o in p.forward(data=x.to(dev))]
+        assert not any(k.wrapper.launches for k in kernels.KERNELS.values())
+    for tier in ("fp32", "bf16", "int8"):
+        tol = dict(rtol=1e-4, atol=1e-6) if tier == "fp32" else precision.tier_tolerance(tier)
+        for got, ref, base in zip(outs[("cuda", tier)], outs[("cpu", tier)],
+                                  outs[("cuda", "fp32")]):
+            torch.testing.assert_close(got, ref, **tol)
+            torch.testing.assert_close(got, base, **(precision.tier_tolerance(tier)
+                                                     if tier != "fp32" else tol))
+
+
+def _quantized_resnet8(device):
+    from mxnet_tpu_torch import symbol as tsym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+
+    gen = torch.Generator().manual_seed(22)
+    with tsym.NameManager():
+        net = get_symbol(10, 8, "3,16,16")
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(1, 3, 16, 16))
+    args = {n: (torch.randn(s, generator=gen) * (2.0 / np.prod(s[1:])) ** 0.5
+                if n.endswith("_weight") else torch.ones(s) if n.endswith("_gamma")
+                else torch.zeros(s)).to(device)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    aux = {n: (torch.ones(s) if n.endswith("_var") else torch.zeros(s)).to(device)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    calib = torch.randn((8, 3, 16, 16), generator=gen).to(device)
+    return quantize_model(net, args, aux, device=device, excluded_sym_names=["fc1"],
+                          calib_mode="naive", calib_data=NDArrayIter(calib, batch_size=4))
+
+
+def _plan_int8_nodes(exe):
+    """(int8 quantize nodes, dequantize nodes of int8 input) of the
+    inference plan an executor runs, from its walk on meta tensors."""
+    from mxnet_tpu_torch.analysis import executor_context
+    from mxnet_tpu_torch.analysis.graph_analyzers import _abstract_walk
+
+    ctx = executor_context(exe)
+    dts = {n: v.dtype for n, v in ctx.arg_avals.items()}
+    _abstract_walk(ctx.graph, ctx, record=lambda node, nm, shape, dtype, vals, ins:
+                   dts.__setitem__(nm, dtype))
+    plan = ctx.graph.entries
+    return (sum(n.op.name == "_contrib_quantize" and n.attrs.get("out_type") == "int8"
+                for n, _ in plan),
+            sum(n.op.name == "_contrib_dequantize" and dts[ins[0]] == torch.int8
+                for n, ins in plan))
+
+
+def test_quantized_deploy_predictor_bit_equal_to_bare_executor(cuda, monkeypatch, tmp_path):
+    """``quantize_model``'s int8 CIFAR ResNet-8, written to files and served
+    by a Predictor on the card: outputs equal bit for bit to a bare Executor
+    of the same symbol with the graph passes off; one quantize_int8 launch
+    per int8 quantize node and one dequantize_int8 per dequantize node of
+    int8 input of the optimised plan, a forward; no host synchronisation."""
+    from mxnet_tpu_torch import ndarray, symbol as tsym
+    from mxnet_tpu_torch.predictor import Predictor
+
+    qsym, qargs, qaux = _quantized_resnet8(cuda)
+    qsym.save(str(tmp_path / "q-symbol.json"))
+    ndarray.save(str(tmp_path / "q.params"), {**{"arg:" + k: v for k, v in qargs.items()},
+                                               **{"aux:" + k: v for k, v in qaux.items()}})
+    x = torch.from_numpy(np.random.RandomState(23).randn(4, 3, 16, 16)
+                         .astype(np.float32)).to(cuda)
+    pred = Predictor(str(tmp_path / "q-symbol.json"), str(tmp_path / "q.params"),
+                     {"data": (4, 3, 16, 16)})
+    pred.forward(data=x)  # builds the plan
+    n_q, n_dq = _plan_int8_nodes(pred._exec)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pred.forward(data=x)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.quantize_int8.launches == n_q > 0
+    assert kernels.dequantize_int8.launches == n_dq > 0
+    monkeypatch.setenv("MXNET_GRAPH_PASSES", "0")
+    # the symbol file does not carry the weights' int8 dtype: type_dict does
+    exe = tsym.load(str(tmp_path / "q-symbol.json")).simple_bind(
+        device=cuda, grad_req="null", type_dict={k: v.dtype for k, v in qargs.items()},
+        data=(4, 3, 16, 16))
+    for bound, params in ((exe.arg_dict, qargs), (exe.aux_dict, qaux)):
+        for k, v in params.items():
+            bound[k].copy_(v)
+    ref = exe.forward(data=x)[0]
+    assert exe.pass_stats() == {} and torch.equal(out, ref)
+
+
+def test_kernel_wrappers_launch_nothing_on_meta_tensors(cuda):
+    """Under meta tensors (the analyzers' abstract walk) every wrapper gives
+    empty meta outputs of the right shapes and dtypes and counts nothing."""
+    meta = torch.device("meta")
+    kernels.reset_launches()
+    i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=meta)
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=meta)
+    outs = [
+        kernels.nms_alive(f32(2, 9, 4), torch.empty((2, 9), dtype=torch.bool, device=meta),
+                          thresh=0.5),
+        kernels.dconv_col(*(i32(4, 6),) * 4, *(f32(4, 6),) * 3, f32(4, 12, 8), (3, 4)),
+        *kernels.dconv_col_bwd(*(i32(4, 6),) * 4, *(f32(4, 6),) * 3, f32(4, 12, 8),
+                               f32(4, 6, 8), (3, 4)),
+        kernels.psroi_abuild(f32(3, 2, 4), f32(3, 2, 5)),
+        *kernels.psroi_abuild_bwd(f32(3, 2, 4), f32(3, 2, 5), f32(3, 4, 5)),
+        kernels.quantize_int8(f32(5, 7), f32()),
+        kernels.dequantize_int8(torch.empty((5, 7), dtype=torch.int8, device=meta), f32()),
+    ]
+    assert all(o.device.type == "meta" for o in outs)
+    assert [tuple(o.shape) for o in outs] == [(2, 9), (4, 6, 8), (4, 6), (4, 6), (4, 6),
+                                              (4, 12, 8), (3, 4, 5), (3, 2, 4), (3, 2, 5),
+                                              (5, 7), (5, 7)]
+    assert not any(k.wrapper.launches for k in kernels.KERNELS.values())
+    assert kernels.quantize_int8(torch.ones(5, device=cuda), torch.ones((), device=cuda)) \
+        .dtype == torch.int8 and kernels.quantize_int8.launches == 1
+
+
+def test_predictor_forward_makes_no_host_sync(cuda):
+    """Every forward after the first (which builds the plan) of the deploy
+    twin and its bf16 and int8 twins on the card, under
+    ``set_sync_debug_mode("error")``."""
+    from mxnet_tpu_torch.graph_passes import precision
+
+    base = _twin_predictor(cuda, batch=4)
+    x = torch.rand((4, 3, 16, 16), device=cuda)
+    table = precision.calibrate(base, [{"data": x}])
+    for p in (base, base.with_precision("bf16"), base.with_precision("int8", table)):
+        p.forward(data=x)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p.forward(data=x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)

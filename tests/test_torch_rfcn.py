@@ -273,7 +273,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 port / "ndarray.py", port / "model.py", port / "callback.py",
                 port / "module" / "__init__.py", port / "module" / "base_module.py",
                 port / "module" / "module.py", port / "train_ssd.py",
-                port / "gluon" / "model_zoo" / "ssd.py"):
+                port / "gluon" / "model_zoo" / "ssd.py", port / "predictor.py",
+                port / "base.py", port / "test_utils.py",
+                port / "graph_passes" / "__init__.py", port / "graph_passes" / "ir.py",
+                port / "graph_passes" / "passes.py", port / "graph_passes" / "precision.py",
+                port / "analysis" / "__init__.py", port / "analysis" / "diagnostics.py",
+                port / "analysis" / "graph_analyzers.py", port / "analysis" / "numerics.py"):
         assert new in files
     for f in files:
         for mod in _imports(f):
