@@ -126,6 +126,26 @@ Phases, in order; any failure exits non-zero:
    are not the path's and are taken out of the phase's count, which must
    equal launches a forward times the Predictors' forwards), and the pass
    rows;
+8e. serve_engine: ``predictor_resnet``'s files served through the serving
+   layer.  (a) an fp32 ``serving.Engine`` on ``pow2_ladder(32)``, warmed up
+   (six fresh buckets, each one's compile seconds printed) before 8
+   closed-loop clients send 240 requests of 1-8 N(0, 1) images and 2 of 40
+   (direct dispatch): compiles after warmup only the direct signature's,
+   every reply (n, 1000), finite, rows summing to 1 within 1e-5, and equal
+   bit for bit to a Predictor of its bucket on the same rows at the same
+   offsets; requests/s, samples/s, p50 / p99, batches, fill, padding waste,
+   peak memory and one profiled batch of 32; (b) the ``quantize_model``
+   deploy through an Engine on (1, 8, 32), 40 of (a)'s requests from 4
+   clients: ``quantize_int8`` / ``dequantize_int8`` launched 49 / 53 times
+   (the Predictor's count a forward) per Engine forward (warmup's plus its
+   batches), replies equal to the bucket's Predictor, top-1 agreement with
+   (a); (c) a ``Router`` over ``ModelRegistry.register(..., tiers=("fp32",
+   "bf16", "int8"), calibration=<predictor_resnet's table>)``: paid traffic
+   alone all on fp32 with no downgrade, a best_effort flood that must
+   degrade best_effort to bf16 within 30 s while paid stays on fp32, the
+   route back to fp32 within hold_s + 5 s after the flood, 8 requests
+   through the int8 pool, every pool's replies equal to its twin's bucket
+   Predictor; no ported kernel launched in (a) or (c);
 9. small input: the tiny configuration on the card against the same model on
    the CPU (the plain versions), stage by stage, then one train step on each
    with the same weights and the same noise, with frozen BatchNorm and with
@@ -163,6 +183,8 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -256,6 +278,23 @@ PREDICTOR_RESNET_ITERS = 50
 # (0.042, 1.44) for another image's logits and (0.279, 0.839) for the int8
 # twin of a table with halved ranges, and the gate rejects both.
 LOGIT_LIMITS = {"bf16": (0.02, 0.3), "int8": (0.08, 0.65)}
+# serve_engine, on predictor_resnet's files: (a) the fp32 Engine on
+# pow2_ladder(32), 8 closed-loop clients, 240 requests of 1-8 N(0, 1) images
+# and 2 of 40 (direct dispatch); (b) the quantize_model deploy's Engine on
+# (1, 8, 32), 40 of (a)'s requests from 4 clients; (c) a Router over the
+# fp32 / bf16 / int8 twins on (1, 4, 16), queues of 16: paid alone (30
+# requests of 1-4 images, 2 clients), then 8 clients' 4-image best_effort
+# flood beside 2 paid clients until the queue pressure (degrade at 0.25,
+# calm below 0.125 for 2 s) degrades best_effort, at most 30 s.  Every path
+# serves fc1's logits beside the probabilities (SERVE_OUTPUTS), and replies
+# must equal their bucket's Predictor bit for bit (an H100 showed them so).
+SERVE_OUTPUTS = ("fc1", "softmax")
+SERVE_LADDER_TOP, SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_N = 32, 8, 240, 8
+SERVE_DIRECT = (2, 40)
+SERVE_DEPLOY_LADDER, SERVE_DEPLOY_REQUESTS, SERVE_DEPLOY_CLIENTS = (1, 8, 32), 40, 4
+ROUTER_LADDER, ROUTER_MAX_QUEUE, ROUTER_FLOOD_CLIENTS = (1, 4, 16), 16, 8
+ROUTER_POLICY = dict(pressure=0.25, hold_s=2.0, interval_s=0.05)
+ROUTER_DEGRADE_WAIT_S = 30
 
 
 def fail(msg):
@@ -2650,14 +2689,14 @@ def resnet_tier_logits(sfile, pfile, data, table, image):
     return out
 
 
-def phase_predictor_resnet(kernels, dev, card):
+def phase_predictor_resnet(kernels, dev, card, tmp):
     """ResNet-50 v2 (INT8's symbol) served through Predictor from files at
     INT8_BATCHES: fp32, the bf16 tier and the int8 tier, then
     ``quantize_model``'s int8 symbol served the same way and held bit for bit
-    against a bare Executor with the graph passes off.  -> (launch counts
-    over the phase, report)."""
+    against a bare Executor with the graph passes off.  The files are
+    written under ``tmp``.  -> (launch counts over the phase, report, the
+    files, the calibration table and the image shape for serve_engine)."""
     import os
-    import tempfile
 
     from mxnet_tpu_torch import symbol as sym
     from mxnet_tpu_torch.contrib.quantization import quantize_model
@@ -2675,113 +2714,112 @@ def phase_predictor_resnet(kernels, dev, card):
     calib = torch.randn((n_batches * per_batch,) + image, generator=gen).to(dev)
     data = torch.randn((max(INT8_BATCHES),) + image, generator=gen).to(dev)
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        sfile, pfile = save_checkpoint(tmp, "resnet50_v2", net, args, aux)
-        base = Predictor(sfile, pfile, {"data": (per_batch,) + image})
-        t0 = time.perf_counter()
-        table = precision.calibrate(base, ({"data": calib[i * per_batch:(i + 1) * per_batch]}
-                                           for i in range(n_batches)))
-        calib_s = time.perf_counter() - t0
-        struct = [getattr(n.op, "name", "") for n, _ in base._exec._structural_plan(False)[0]]
-        for batch in INT8_BATCHES:
-            x = data[:batch]
-            fp32 = base.with_shapes({"data": (batch,) + image})
-            outs = {}
-            for tier in TIERS:
-                pred = fp32 if tier == "fp32" else fp32.with_precision(
-                    tier, table if tier == "int8" else None)
-                torch.cuda.synchronize()
-                before = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                rep, out = serve_tier(kernels, pred, x, "predictor_resnet %s batch %d" % (
-                    tier, batch), PREDICTOR_RESNET_ITERS, PREDICTOR_WINDOWS)
-                rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-                rep["resident_before_gib"] = before / 2**30
-                outs[tier] = out[0]
-                if tier != "fp32":
-                    rep["max_abs_err_vs_fp32"] = float((out[0].float() - outs["fp32"]).abs().max())
-                    rep["top1_agreement"] = float(
-                        (out[0].argmax(1) == outs["fp32"].argmax(1)).float().mean())
-                plan = [getattr(n.op, "name", "") for n, _ in pred._exec._opt_plan(False)[0]]
-                if tier == "bf16":
-                    rep["folded_batchnorms"] = struct.count("_bn_affine") - plan.count("_bn_affine")
-                    rep["cast_nodes"] = plan.count("_precision_cast")
-                if tier == "int8":
-                    rep["int8_sites"] = len(pred.int8_sites)
-                    rep["calibrate_s"] = calib_s
-                res["%s_batch%d" % (tier, batch)] = rep
-                say("predictor_resnet %s batch %d: peak %.3f GiB (%.3f resident before)%s" % (
-                    tier, batch, rep["peak_gib"], rep["resident_before_gib"],
-                    "".join("; %s %s" % (k, rep[k]) for k in (
-                        "top1_agreement", "max_abs_err_vs_fp32", "folded_batchnorms",
-                        "cast_nodes", "int8_sites") if k in rep)))
-                del pred
-            del fp32, outs
-        del base
-        res["logits_vs_fp32"] = resnet_tier_logits(sfile, pfile, data, table, image)
-        torch.cuda.empty_cache()
+    sfile, pfile = save_checkpoint(tmp, "resnet50_v2", net, args, aux)
+    base = Predictor(sfile, pfile, {"data": (per_batch,) + image})
+    t0 = time.perf_counter()
+    table = precision.calibrate(base, ({"data": calib[i * per_batch:(i + 1) * per_batch]}
+                                       for i in range(n_batches)))
+    calib_s = time.perf_counter() - t0
+    struct = [getattr(n.op, "name", "") for n, _ in base._exec._structural_plan(False)[0]]
+    for batch in INT8_BATCHES:
+        x = data[:batch]
+        fp32 = base.with_shapes({"data": (batch,) + image})
+        outs = {}
+        for tier in TIERS:
+            pred = fp32 if tier == "fp32" else fp32.with_precision(
+                tier, table if tier == "int8" else None)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rep, out = serve_tier(kernels, pred, x, "predictor_resnet %s batch %d" % (
+                tier, batch), PREDICTOR_RESNET_ITERS, PREDICTOR_WINDOWS)
+            rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rep["resident_before_gib"] = before / 2**30
+            outs[tier] = out[0]
+            if tier != "fp32":
+                rep["max_abs_err_vs_fp32"] = float((out[0].float() - outs["fp32"]).abs().max())
+                rep["top1_agreement"] = float(
+                    (out[0].argmax(1) == outs["fp32"].argmax(1)).float().mean())
+            plan = [getattr(n.op, "name", "") for n, _ in pred._exec._opt_plan(False)[0]]
+            if tier == "bf16":
+                rep["folded_batchnorms"] = struct.count("_bn_affine") - plan.count("_bn_affine")
+                rep["cast_nodes"] = plan.count("_precision_cast")
+            if tier == "int8":
+                rep["int8_sites"] = len(pred.int8_sites)
+                rep["calibrate_s"] = calib_s
+            res["%s_batch%d" % (tier, batch)] = rep
+            say("predictor_resnet %s batch %d: peak %.3f GiB (%.3f resident before)%s" % (
+                tier, batch, rep["peak_gib"], rep["resident_before_gib"],
+                "".join("; %s %s" % (k, rep[k]) for k in (
+                    "top1_agreement", "max_abs_err_vs_fp32", "folded_batchnorms",
+                    "cast_nodes", "int8_sites") if k in rep)))
+            del pred
+        del fp32, outs
+    del base
+    res["logits_vs_fp32"] = resnet_tier_logits(sfile, pfile, data, table, image)
+    torch.cuda.empty_cache()
 
-        # quantize_model's int8 symbol, deployed
-        qsym, qargs, qaux = quantize_model(
-            net, args, aux, device=dev, excluded_sym_names=["fc1"], calib_mode="naive",
-            calib_data=NDArrayIter(calib, batch_size=per_batch))
-        qfile, qpfile = save_checkpoint(tmp, "resnet50_v2_int8", qsym, qargs, qaux)
-        kernels.reset_launches()
-        bare_launched = dict.fromkeys(counts(kernels), 0)  # the references', taken out
-        expect = dict.fromkeys(counts(kernels), 0)         # launches a forward x forwards
-        for batch in INT8_BATCHES:
-            x = data[:batch]
-            pred = Predictor(qfile, qpfile, {"data": (batch,) + image})
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pred.forward(data=x)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            n_q, n_dq = plan_int8_nodes(pred._exec)
-            if (n_q, n_dq) != int8_nodes(qsym, (batch,) + image):
-                fail("the passes changed the int8 quantize / dequantize nodes: %s -> %s"
-                     % (int8_nodes(qsym, (batch,) + image), (n_q, n_dq)))
-            before = counts(kernels)
-            out = no_host_sync(lambda: pred.forward(data=x)[0].clone(),
-                               "the quantize_model deploy's forward")
-            got = {n: c - before[n] for n, c in counts(kernels).items()}
-            if got != only(got, quantize_int8=n_q, dequantize_int8=n_dq):
-                fail("the quantize_model deploy at batch %d launched %s, expected "
-                     "quantize_int8 %d and dequantize_int8 %d" % (batch, got, n_q, n_dq))
-            before = counts(kernels)
-            os.environ["MXNET_GRAPH_PASSES"] = "0"
-            try:
-                bare = bind(qsym, qargs, qaux, batch, dev, image)
-            finally:
-                del os.environ["MXNET_GRAPH_PASSES"]
-            ref = bare.forward(data=x)[0]
-            if bare.pass_stats() or not torch.equal(out, ref):
-                fail("the quantize_model deploy at batch %d differs from the bare executor "
-                     "in %d values" % (batch, int((out != ref).sum())))
-            for n, c in counts(kernels).items():
-                bare_launched[n] += c - before[n]
-            ms = predictor_windows(pred, x, PREDICTOR_RESNET_ITERS, PREDICTOR_WINDOWS)
-            reps = 3
-            prof = device_profile(lambda: pred.forward(data=x), reps=reps)
-            # the first forward, the one under no_host_sync, the windows, the profile
-            forwards = 2 + PREDICTOR_RESNET_ITERS * PREDICTOR_WINDOWS + reps
-            for n in expect:
-                expect[n] += got[n] * forwards
-            rep = dict(first_forward_s=first_s, ms=statistics.median(ms), ms_windows=ms,
-                       samples_per_s=batch * 1e3 / statistics.median(ms),
-                       launches_per_forward={k: got[k] for k in INT8_PAIR},
-                       kernels_per_forward=prof.get("kernels_per_call"),
-                       device_busy_ms=prof.get("device_busy_ms"),
-                       idle_share=prof.get("idle_share"), passes=pass_rows(pred),
-                       check=check_clean(pred, "the quantize_model deploy"))
-            res["quantize_model_batch%d" % batch] = rep
-            say("predictor_resnet quantize_model deploy batch %d: equal bit for bit to the "
-                "bare executor (passes off); launches a forward %s; first forward %.3f s; "
-                "%.3f ms a forward (windows %s); %s kernels, busy %s ms, idle share %s; "
-                "passes %s" % (batch, rep["launches_per_forward"], first_s, rep["ms"],
-                               ", ".join("%.3f" % t for t in ms), rep["kernels_per_forward"],
-                               rep["device_busy_ms"], rep["idle_share"], rep["passes"]))
-            del pred, bare
+    # quantize_model's int8 symbol, deployed
+    qsym, qargs, qaux = quantize_model(
+        net, args, aux, device=dev, excluded_sym_names=["fc1"], calib_mode="naive",
+        calib_data=NDArrayIter(calib, batch_size=per_batch))
+    qfile, qpfile = save_checkpoint(tmp, "resnet50_v2_int8", qsym, qargs, qaux)
+    kernels.reset_launches()
+    bare_launched = dict.fromkeys(counts(kernels), 0)  # the references', taken out
+    expect = dict.fromkeys(counts(kernels), 0)         # launches a forward x forwards
+    for batch in INT8_BATCHES:
+        x = data[:batch]
+        pred = Predictor(qfile, qpfile, {"data": (batch,) + image})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.forward(data=x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        n_q, n_dq = plan_int8_nodes(pred._exec)
+        if (n_q, n_dq) != int8_nodes(qsym, (batch,) + image):
+            fail("the passes changed the int8 quantize / dequantize nodes: %s -> %s"
+                 % (int8_nodes(qsym, (batch,) + image), (n_q, n_dq)))
+        before = counts(kernels)
+        out = no_host_sync(lambda: pred.forward(data=x)[0].clone(),
+                           "the quantize_model deploy's forward")
+        got = {n: c - before[n] for n, c in counts(kernels).items()}
+        if got != only(got, quantize_int8=n_q, dequantize_int8=n_dq):
+            fail("the quantize_model deploy at batch %d launched %s, expected "
+                 "quantize_int8 %d and dequantize_int8 %d" % (batch, got, n_q, n_dq))
+        before = counts(kernels)
+        os.environ["MXNET_GRAPH_PASSES"] = "0"
+        try:
+            bare = bind(qsym, qargs, qaux, batch, dev, image)
+        finally:
+            del os.environ["MXNET_GRAPH_PASSES"]
+        ref = bare.forward(data=x)[0]
+        if bare.pass_stats() or not torch.equal(out, ref):
+            fail("the quantize_model deploy at batch %d differs from the bare executor "
+                 "in %d values" % (batch, int((out != ref).sum())))
+        for n, c in counts(kernels).items():
+            bare_launched[n] += c - before[n]
+        ms = predictor_windows(pred, x, PREDICTOR_RESNET_ITERS, PREDICTOR_WINDOWS)
+        reps = 3
+        prof = device_profile(lambda: pred.forward(data=x), reps=reps)
+        # the first forward, the one under no_host_sync, the windows, the profile
+        forwards = 2 + PREDICTOR_RESNET_ITERS * PREDICTOR_WINDOWS + reps
+        for n in expect:
+            expect[n] += got[n] * forwards
+        rep = dict(first_forward_s=first_s, ms=statistics.median(ms), ms_windows=ms,
+                   samples_per_s=batch * 1e3 / statistics.median(ms),
+                   launches_per_forward={k: got[k] for k in INT8_PAIR},
+                   kernels_per_forward=prof.get("kernels_per_call"),
+                   device_busy_ms=prof.get("device_busy_ms"),
+                   idle_share=prof.get("idle_share"), passes=pass_rows(pred),
+                   check=check_clean(pred, "the quantize_model deploy"))
+        res["quantize_model_batch%d" % batch] = rep
+        say("predictor_resnet quantize_model deploy batch %d: equal bit for bit to the "
+            "bare executor (passes off); launches a forward %s; first forward %.3f s; "
+            "%.3f ms a forward (windows %s); %s kernels, busy %s ms, idle share %s; "
+            "passes %s" % (batch, rep["launches_per_forward"], first_s, rep["ms"],
+                           ", ".join("%.3f" % t for t in ms), rep["kernels_per_forward"],
+                           rep["device_busy_ms"], rep["idle_share"], rep["passes"]))
+        del pred, bare
     # the Predictor's own launches: the bare executors' reference forwards
     # are not the path's
     launches = {n: c - bare_launched[n] for n, c in counts(kernels).items()}
@@ -2790,6 +2828,405 @@ def phase_predictor_resnet(kernels, dev, card):
              "%s (launches a forward x forwards)" % (launches, expect))
     res["quantize_model_launches"] = launches
     say("predictor_resnet on %s: %s" % (card, json.dumps(res)))
+    return launches, res, dict(sfile=sfile, pfile=pfile, qfile=qfile, qpfile=qpfile,
+                               table=table, image=image,
+                               launches_per_forward=(got["quantize_int8"], got["dequantize_int8"]))
+
+
+def record_batches(eng):
+    """Have ``eng`` log every batch its device loop dispatches, as (requests,
+    bucket) in dispatch order -> the log (a list that grows)."""
+    log = []
+    dispatch = eng._dispatch
+
+    def recorded(reqs, bucket):
+        log.append((list(reqs), bucket))
+        return dispatch(reqs, bucket)
+
+    eng._dispatch = recorded
+    return log
+
+
+def check_replies(log, base, what):
+    """Every reply of the logged batches (SERVE_OUTPUTS: fc1's logits and
+    the probabilities) held against a Predictor of its bucket
+    (``base.with_shapes``) forwarded on a batch that holds the same rows at
+    the same offsets, zeros elsewhere: equal bit for bit (eval rows do not
+    mix), else the phase fails with the largest difference.  The logits are
+    compared because the softmax of these random weights saturates to one
+    hot rows that a TF32-rounded forward leaves unchanged.  Each reply must
+    also be finite, (n, 1000), with rows of probabilities summing to 1
+    within 1e-5.  -> summary."""
+    refs, unequal, max_abs = {}, 0, 0.0
+    for reqs, bucket in log:
+        ref = refs.get(bucket.key)
+        if ref is None:
+            ref = refs[bucket.key] = base.with_shapes(bucket.input_shapes())
+        x = np.zeros((bucket.batch,) + bucket.sample_shape("data"), np.float32)
+        off = 0
+        for req in reqs:
+            x[off:off + req.n] = req.inputs["data"]
+            off += req.n
+        want = [o.float().cpu().numpy() for o in ref.forward(data=x)]
+        off = 0
+        for req in reqs:
+            got = req.result(0)
+            if [g.shape for g in got] != [(req.n, 1000)] * 2 or \
+                    not all(np.isfinite(g).all() for g in got):
+                fail("%s: a reply of shapes %s, finite %s" % (
+                    what, [g.shape for g in got], [np.isfinite(g).all() for g in got]))
+            if np.abs(got[1].sum(1) - 1).max() > 1e-5:
+                fail("%s: a reply's rows sum to %s" % (what, got[1].sum(1)))
+            for g, w in zip(got, want):
+                w = w[off:off + req.n]
+                if not np.array_equal(g, w):
+                    unequal += 1
+                    max_abs = max(max_abs, float(np.abs(g - w).max()))
+            off += req.n
+    if unequal:
+        fail("%s: %d replies differ from their bucket's Predictor, largest |diff| %g"
+             % (what, unequal, max_abs))
+    return dict(batches_checked=len(log), replies_checked=sum(len(r) for r, _ in log))
+
+
+def drive_clients(submit, jobs, timeout=120.0):
+    """Closed-loop clients, one thread per list of ``jobs``: each submits its
+    inputs one by one and waits for each reply.  -> (the requests in order,
+    wall seconds from the first submit to the last reply)."""
+    done = [[] for _ in jobs]
+    errors = []
+
+    def client(i):
+        try:
+            for x in jobs[i]:
+                req = submit(x)
+                req.result(timeout)
+                done[i].append(req)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(jobs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout * 4)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail("serving clients failed: %r" % (errors[:3],))
+    return [r for reqs in done for r in reqs], wall
+
+
+def latency_ms(reqs):
+    lat = sorted(r.latency_s * 1e3 for r in reqs)
+    return dict(p50_ms=lat[len(lat) // 2], p99_ms=lat[min(len(lat) - 1, int(len(lat) * 0.99))])
+
+
+def batch_fill(log):
+    """Mean fill and mean padding waste of the logged ladder batches."""
+    ladder = [(sum(r.n for r in reqs), b.batch) for reqs, b in log if not b.direct]
+    fills = [n / b for n, b in ladder]
+    return dict(batches=len(log), ladder_batches=len(ladder),
+                mean_fill=statistics.mean(fills) if fills else None,
+                mean_padding_waste=1 - statistics.mean(fills) if fills else None)
+
+
+def serve_jobs(rng, clients, requests, max_n, image, pool=None):
+    """Per-client lists of request inputs: sizes 1..max_n from ``rng``, N(0, 1)
+    images (drawn from ``pool``, a list of ready arrays, where given)."""
+    jobs = [[] for _ in range(clients)]
+    for i in range(requests):
+        n = int(rng.randint(1, max_n + 1))
+        x = (pool[int(rng.randint(len(pool)))][:n] if pool is not None
+             else rng.standard_normal((n,) + image).astype(np.float32))
+        jobs[i % clients].append({"data": x})
+    return jobs
+
+
+def serve_engine_fp32(kernels, deploy, card):
+    """(a): ResNet-50 v2 fp32 through an Engine on pow2_ladder(32)."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.predictor import Predictor
+
+    image = deploy["image"]
+    rng = np.random.RandomState(SEED + 16)
+    jobs = serve_jobs(rng, SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_N, image)
+    for i in range(SERVE_DIRECT[0]):  # the direct requests, mid-stream
+        jobs[i].insert(len(jobs[i]) // 2, {"data": rng.standard_normal(
+            (SERVE_DIRECT[1],) + image).astype(np.float32)})
+    kernels.reset_launches()
+    eng = serving.Engine(deploy["sfile"], deploy["pfile"], {"data": image},
+                         output_names=SERVE_OUTPUTS,
+                         ladder=serving.BucketLadder(serving.pow2_ladder(SERVE_LADDER_TOP)),
+                         max_direct_batch=128, name="resnet50-fp32",
+                         start=False)
+    try:
+        report = eng.warmup()
+        if [r["fresh"] for r in report] != [True] * 6:
+            fail("serve_engine fp32: warmup rows %s, expected six fresh" % report)
+        say("serve_engine fp32 warmup: %s" % ", ".join(
+            "%s %.3f s" % (r["bucket"], r["compile_s"]) for r in report))
+        compiles = eng.stats()["compiles"]
+        log = record_batches(eng)
+        eng.start()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reqs, wall = drive_clients(eng.submit, jobs)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats = eng.stats()
+        if stats["compiles"] != compiles + 1:
+            fail("serve_engine fp32: %d compiles after warmup's %d; expected one more, the "
+                 "direct signature" % (stats["compiles"], compiles))
+        # one profiled window: 4 requests of 8 samples at once
+        window = [{"data": jobs[0][k]["data"][:1].repeat(8, 0)} for k in range(4)]
+        n_traffic = len(log)
+        prof = device_profile(lambda: [r.result(60) for r in [eng.submit(x) for x in window]],
+                              reps=1)
+        log_window = log[n_traffic:]
+    finally:
+        eng.close()
+    if any(counts(kernels).values()):
+        fail("serve_engine fp32 launched %s" % counts(kernels))
+    base = Predictor(deploy["sfile"], deploy["pfile"], {"data": (1,) + image},
+                     output_names=SERVE_OUTPUTS)
+    checked = check_replies(log, base, "serve_engine fp32")
+    if checked["batches_checked"] < 16:
+        fail("serve_engine fp32: %d batches checked, fewer than 16" % checked["batches_checked"])
+    samples = sum(r.n for r in reqs)
+    kpc = prof.get("kernels_per_call")
+    res = dict(requests=len(reqs), samples=samples, wall_s=wall, requests_per_s=len(reqs) / wall,
+               samples_per_s=samples / wall, **latency_ms(reqs), **batch_fill(log[:n_traffic]),
+               compiles=stats["compiles"], warmup_compile_s=[r["compile_s"] for r in report],
+               peak_gib=peak, direct=stats["direct"],
+               window=dict(batches=len(log_window), buckets=[repr(b) for _, b in log_window],
+                           kernels_per_batch=kpc / len(log_window) if kpc else None,
+                           device_busy_ms=prof.get("device_busy_ms"),
+                           idle_share=prof.get("idle_share"),
+                           traced_wall_ms=prof.get("traced_wall_ms")),
+               **checked)
+    say("serve_engine fp32 (ResNet-50 v2, 224², ladder %s, %d clients) on %s: %.1f requests/s, "
+        "%.1f samples/s, p50 %.2f ms, p99 %.2f ms, %d batches, mean fill %.3f, padding waste "
+        "%.3f, peak %.3f GiB; window %s; %d replies in %d batches equal to their bucket's "
+        "Predictor"
+        % (serving.pow2_ladder(SERVE_LADDER_TOP), SERVE_CLIENTS, card, res["requests_per_s"],
+           res["samples_per_s"], res["p50_ms"], res["p99_ms"], res["batches"], res["mean_fill"],
+           res["mean_padding_waste"], peak, json.dumps(res["window"]),
+           res["replies_checked"], res["batches_checked"]))
+    return res, jobs, reqs
+
+
+def serve_engine_deploy(kernels, deploy, card, fp32_jobs, fp32_reqs):
+    """(b): the quantize_model deploy through an Engine: the int8 pair's
+    launches = launches a forward x the Engine's forwards."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.predictor import Predictor
+
+    image = deploy["image"]
+    flat = [x for job in fp32_jobs for x in job if x["data"].shape[0] <= SERVE_MAX_N]
+    inputs = flat[:SERVE_DEPLOY_REQUESTS]
+    jobs = [inputs[i::SERVE_DEPLOY_CLIENTS] for i in range(SERVE_DEPLOY_CLIENTS)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    eng = serving.Engine(deploy["qfile"], deploy["qpfile"], {"data": image},
+                         output_names=SERVE_OUTPUTS,
+                         ladder=serving.BucketLadder(SERVE_DEPLOY_LADDER), name="resnet50-int8",
+                         start=False)
+    try:
+        report = eng.warmup()
+        log = record_batches(eng)
+        eng.start()
+        reqs, wall = drive_clients(eng.submit, jobs)
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    stats = eng.stats()
+    forwards = len(report) + stats["batches"]
+    # launches a forward: the int8 nodes of the bucket plans, as
+    # predictor_resnet measured them a forward of its Predictors
+    n_q, n_dq = deploy["launches_per_forward"]
+    for bucket in eng.ladder.signatures(eng.sample_shapes):
+        if plan_int8_nodes(eng._cache[bucket.key]._exec) != (n_q, n_dq):
+            fail("serve_engine deploy: bucket %s's plan has int8 nodes %s, the Predictor's %s"
+                 % (bucket, plan_int8_nodes(eng._cache[bucket.key]._exec), (n_q, n_dq)))
+    expect = only(launches, quantize_int8=n_q * forwards, dequantize_int8=n_dq * forwards)
+    if launches != expect:
+        fail("serve_engine deploy: launched %s over %d forwards (%d warmup + %d batches), "
+             "expected %d / %d a forward" % (launches, forwards, len(report), stats["batches"],
+                                            n_q, n_dq))
+    checked = check_replies(log, Predictor(deploy["qfile"], deploy["qpfile"],
+                                           {"data": (1,) + image}, output_names=SERVE_OUTPUTS),
+                            "serve_engine deploy")
+    # top-1 against (a)'s fp32 replies to the same samples
+    fp32_reply = {id(r.inputs["data"]): r.result(0)[0] for r in fp32_reqs}
+    agree = [float((r.result(0)[0].argmax(1) == fp32_reply[id(r.inputs["data"])].argmax(1)).mean())
+             for r in reqs if id(r.inputs["data"]) in fp32_reply]
+    samples = sum(r.n for r in reqs)
+    res = dict(requests=len(reqs), samples=samples, wall_s=wall, samples_per_s=samples / wall,
+               **latency_ms(reqs), **batch_fill(log), warmup_compile_s=[r["compile_s"] for r in report],
+               forwards=forwards, launches_per_forward={"quantize_int8": n_q, "dequantize_int8": n_dq},
+               launches=launches, top1_agreement_vs_fp32=statistics.mean(agree) if agree else None,
+               **checked)
+    say("serve_engine quantize_model deploy (ladder %s, %d clients) on %s: %s"
+        % (SERVE_DEPLOY_LADDER, SERVE_DEPLOY_CLIENTS, card, json.dumps(res)))
+    return launches, res
+
+
+def serve_engine_router(kernels, deploy, card):
+    """(c): a Router over the registered fp32 / bf16 / int8 twins: paid
+    alone, a best_effort flood until the policy degrades, the restore,
+    and the int8 pool."""
+    from mxnet_tpu_torch import serving
+
+    image = deploy["image"]
+    rng = np.random.RandomState(SEED + 17)
+    paid_pool = [rng.standard_normal((4,) + image).astype(np.float32) for _ in range(16)]
+    flood_pool = [rng.standard_normal((4,) + image).astype(np.float32) for _ in range(16)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model = serving.ModelRegistry().register(
+        "resnet50", deploy["sfile"], deploy["pfile"], {"data": image}, tiers=TIERS,
+        calibration=deploy["table"], output_names=SERVE_OUTPUTS,
+        ladder=serving.BucketLadder(ROUTER_LADDER),
+        max_queue=ROUTER_MAX_QUEUE)
+    register_s = time.perf_counter() - t0
+    cfg = serving.PolicyConfig(mode="degrade", **ROUTER_POLICY)
+    r = serving.Router(model, replicas=1, policy=cfg, name="resnet50", start=False)
+    logs = {}
+    try:
+        warm = r.warmup()
+        logs = {t: record_batches(r.engines(t)[0]) for t in TIERS}
+        r.start()
+        # step 1: paid traffic alone
+        paid1, _ = drive_clients(lambda x: r.submit(x, priority="paid"), serve_jobs(
+            rng, 2, 30, 4, image, paid_pool))
+        st = r.stats()
+        if {q.tier for q in paid1} != {"fp32"} or {q.routed_tier for q in paid1} != {"fp32"} \
+                or st["downgrades"]:
+            fail("serve_engine router: paid alone went to %s, downgrades %d"
+                 % ({q.tier for q in paid1}, st["downgrades"]))
+        # step 2: a best_effort flood beside paid traffic, until degrade
+        stop = threading.Event()
+        done = {"paid": [], "best_effort": []}
+        sheds, errors = [0], []
+
+        def client(prio, pool, seed):
+            crng = np.random.RandomState(seed)
+            try:
+                while not stop.is_set():
+                    x = {"data": pool[int(crng.randint(len(pool)))]}
+                    try:
+                        q = r.submit(x, priority=prio)
+                    except serving.ServerBusy:
+                        sheds[0] += 1
+                        time.sleep(0.001)
+                        continue
+                    q.result(60)
+                    done[prio].append(q)
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=("best_effort", flood_pool, 100 + i))
+                   for i in range(ROUTER_FLOOD_CLIENTS)]
+        threads += [threading.Thread(target=client, args=("paid", paid_pool, 200 + i))
+                    for i in range(2)]
+        t_flood = time.perf_counter()
+        for t in threads:
+            t.start()
+        t_degrade = None
+        while time.perf_counter() - t_flood < ROUTER_DEGRADE_WAIT_S:
+            if r.stats()["router"]["route"]["best_effort"] != "fp32":
+                t_degrade = time.perf_counter() - t_flood
+                break
+            time.sleep(0.01)
+        if t_degrade is not None:  # flood on until bf16 has served some
+            while time.perf_counter() - t_flood < t_degrade + ROUTER_DEGRADE_WAIT_S and \
+                    sum(q.tier == "bf16" for q in list(done["best_effort"])) < 8:
+                time.sleep(0.01)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        t_stop = time.perf_counter()
+        if errors or any(t.is_alive() for t in threads):
+            fail("serve_engine router flood: %r" % (errors[:3],))
+        if t_degrade is None:
+            fail("serve_engine router: no degrade within %d s of the flood (signals %s)"
+                 % (ROUTER_DEGRADE_WAIT_S, r.stats()["router"]["signals"]))
+        paid_tiers = {q.tier for q in done["paid"]}
+        be_tiers = [q.tier for q in done["best_effort"]]
+        if paid_tiers - {"fp32"} or "bf16" not in be_tiers:
+            fail("serve_engine router flood: paid replies on %s, best_effort on %s"
+                 % (paid_tiers, set(be_tiers)))
+        # step 3: the route returns to native after the flood
+        t_restore = None
+        while time.perf_counter() - t_stop < ROUTER_POLICY["hold_s"] + 5:
+            if r.stats()["router"]["route"]["best_effort"] == "fp32":
+                t_restore = time.perf_counter() - t_stop
+                break
+            time.sleep(0.01)
+        if t_restore is None:
+            fail("serve_engine router: still degraded %.1f s after the flood"
+                 % (ROUTER_POLICY["hold_s"] + 5))
+        # step 4: the int8 pool
+        int8_reqs, _ = drive_clients(r.engines("int8")[0].submit,
+                                     serve_jobs(rng, 1, 8, 8, image, paid_pool + flood_pool))
+        if {q.tier for q in int8_reqs} != {"int8"}:
+            fail("serve_engine router int8 pool: tiers %s" % {q.tier for q in int8_reqs})
+        stats = r.stats()
+    finally:
+        r.close()
+    if any(counts(kernels).values()):
+        fail("serve_engine router launched %s" % counts(kernels))
+    res = dict(register_s=register_s, warmup_compile_s={
+        k: [row["compile_s"] for row in v] for k, v in warm.items()},
+        paid_alone=dict(requests=len(paid1), **latency_ms(paid1)),
+        flood=dict(seconds=t_stop - t_flood, degrade_after_s=t_degrade, restore_after_s=t_restore,
+                   paid=dict(requests=len(done["paid"]), tiers=sorted(paid_tiers),
+                             **latency_ms(done["paid"])),
+                   best_effort=dict(requests=len(be_tiers), on_bf16=be_tiers.count("bf16"),
+                                    **latency_ms(done["best_effort"])),
+                   client_retries_on_shed=sheds[0]),
+        transitions=stats["router"]["transitions"], priorities=stats["router"]["priorities"],
+        pools={})
+    for tier in TIERS:
+        pool = dict(**batch_fill(logs[tier]), **check_replies(
+            logs[tier], model.twin(tier), "serve_engine router %s pool" % tier))
+        served = [q for reqs, _ in logs[tier] for q in reqs]
+        if served:
+            pool.update(latency_ms(served))
+        res["pools"][tier] = pool
+    say("serve_engine router (ResNet-50 v2 fp32 / bf16 / int8 twins, ladder %s, policy %s) on "
+        "%s: %s" % (ROUTER_LADDER, ROUTER_POLICY, card, json.dumps(res)))
+    return res
+
+
+def phase_serve_engine(kernels, card, deploy):
+    """The serving Engine and Router on predictor_resnet's files: (a) fp32
+    through an Engine, (b) the quantize_model deploy through an Engine, the
+    int8 pair counted, (c) a Router over the three tiers.  They serve with
+    TF32 and the reduced-precision reductions allowed outside the forwards,
+    as a user may have them: each forward's ``full_fp32`` must hold them
+    off although the Router's three device loops enter and leave it at
+    once (the reference Predictors run on this thread).  -> (launch counts
+    of (b), report)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else card
+    mm = torch.backends.cuda.matmul
+    saved = (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    mm.allow_bf16_reduced_precision_reduction = True
+    res = {}
+    try:
+        res["fp32"], jobs, reqs = serve_engine_fp32(kernels, deploy, card)
+        launches, res["deploy"] = serve_engine_deploy(kernels, deploy, card, jobs, reqs)
+        del jobs, reqs
+        res["router"] = serve_engine_router(kernels, deploy, card)
+    finally:
+        (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved
+    torch.cuda.empty_cache()
     return launches, res
 
 
@@ -2888,9 +3325,15 @@ def main():
     ssd_train_launches, ssd_train = phase("ssd_train", phase_ssd_train, kernels, dev, name)
     say("ssd: %s" % json.dumps({"serve": ssd_serve, "train": ssd_train}))
     predictor_res = phase("predictor", phase_predictor, kernels, dev, name)
-    predictor_resnet_launches, predictor_resnet_res = phase(
-        "predictor_resnet", phase_predictor_resnet, kernels, dev, name)
-    say("predictor: %s" % json.dumps({"twin": predictor_res, "resnet": predictor_resnet_res}))
+    with tempfile.TemporaryDirectory() as workdir:
+        predictor_resnet_launches, predictor_resnet_res, deploy = phase(
+            "predictor_resnet", phase_predictor_resnet, kernels, dev, name, workdir)
+        say("predictor: %s" % json.dumps({"twin": predictor_res,
+                                          "resnet": predictor_resnet_res}))
+        serve_engine_launches, serve_engine_res = phase(
+            "serve_engine", phase_serve_engine, kernels, name, deploy)
+        del deploy
+    say("serve_engine: %s" % json.dumps(serve_engine_res))
     launches = {"serve": serve_launches, "train": train_launches,
                 "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
                 "int8": int8_launches, "resnet_train": resnet_launches,
@@ -2899,7 +3342,8 @@ def main():
                 "frcnn_serve_bf16": frcnn_serve_bf16_launches,
                 "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches,
                 **ssd_serve_launches, **ssd_train_launches,
-                "predictor_resnet": predictor_resnet_launches}
+                "predictor_resnet": predictor_resnet_launches,
+                "serve_engine": serve_engine_launches}
 
     def kernel_rows():
         rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)

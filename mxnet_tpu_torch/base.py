@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["env_flag"]
+__all__ = ["MXNetError", "env_flag"]
 
 _ENV_FALSY = ("", "0", "false", "no", "off")
 
@@ -13,3 +13,8 @@ def env_flag(name, default="0"):
     is one of '', 0, false, no, off (case and whitespace ignored), True
     otherwise.  Read at each call, so a test can flip it."""
     return os.environ.get(name, default).strip().lower() not in _ENV_FALSY
+
+
+class MXNetError(RuntimeError):
+    """The framework's error type (``mxnet_tpu/base.py`` MXNetError); the
+    serving errors derive from it."""

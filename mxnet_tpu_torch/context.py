@@ -7,10 +7,30 @@ caller asked for ``"cpu"``.  There is no silent CPU path.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
 __all__ = ["full_fp32", "resolve_device"]
+
+
+# full_fp32's holders across threads: the first to enter saves the flags
+# and sets them off, the last to leave restores them
+_FP32_LOCK = threading.Lock()
+_fp32_holders = 0
+_fp32_saved = None
+
+
+def _fp32_flags():
+    mm = torch.backends.cuda.matmul
+    return (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+            mm.allow_bf16_reduced_precision_reduction)
+
+
+def _set_fp32_flags(flags):
+    mm = torch.backends.cuda.matmul
+    (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+     mm.allow_bf16_reduced_precision_reduction) = flags
 
 
 @contextlib.contextmanager
@@ -18,20 +38,28 @@ def full_fp32():
     """Full fp32 arithmetic and accumulation inside the block, the caller's
     settings restored after it: TF32 off for cuDNN convolutions and float32
     matmuls, and cuBLAS's reduced-precision (bf16) reductions off for
-    bfloat16 matmuls.  PyTorch allows all three by default; the JAX
-    reference computes fp32 in full fp32 and accumulates bf16 products in
-    fp32."""
-    mm = torch.backends.cuda.matmul
-    old = (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
-           mm.allow_bf16_reduced_precision_reduction)
-    mm.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    mm.allow_bf16_reduced_precision_reduction = False
+    bfloat16 matmuls.  PyTorch allows cuDNN's TF32 and the reduced-precision
+    reductions by default; the JAX reference computes fp32 in full fp32 and
+    accumulates bf16 products in fp32.
+
+    The three flags are process-global, and serving runs forwards from
+    several threads at once: the first holder (of any thread) saves the
+    flags and sets them off, the last to leave restores them, so no block
+    sees them back on while another thread's is still running."""
+    global _fp32_holders, _fp32_saved
+    with _FP32_LOCK:
+        if _fp32_holders == 0:
+            _fp32_saved = _fp32_flags()
+            _set_fp32_flags((False, False, False))
+        _fp32_holders += 1
     try:
         yield
     finally:
-        (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
-         mm.allow_bf16_reduced_precision_reduction) = old
+        with _FP32_LOCK:
+            _fp32_holders -= 1
+            if _fp32_holders == 0:
+                _set_fp32_flags(_fp32_saved)
+                _fp32_saved = None
 
 
 def resolve_device(device=None):

@@ -36,6 +36,7 @@ counterparts of the TPU kernels' custom VJPs.  The kernel sources are under
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, NamedTuple
 
 import torch
@@ -81,15 +82,22 @@ def _float(name, what, t):
              "not ported)" % (name, what, t.dtype))
 
 
+# the launch counts are read-modify-written from every thread that
+# launches (serving runs one device loop per engine)
+_COUNT_LOCK = threading.Lock()
+
+
 def _launch(name, dev, entry, *args):
     """Launch C entry ``entry`` on ``dev``'s current stream; raise on a CUDA
     error, else count the launch on the kernel's wrapper (looked up in
-    KERNELS, so that a caller may wrap the module attribute)."""
+    KERNELS, so that a caller may wrap the module attribute), exactly under
+    any number of launching threads."""
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib, getattr(lib, entry)(*args, stream), name)
-    KERNELS[name].wrapper.launches += 1
+    with _COUNT_LOCK:
+        KERNELS[name].wrapper.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -759,5 +767,6 @@ KERNELS = {
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    for k in KERNELS.values():
-        k.wrapper.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS.values():
+            k.wrapper.launches = 0

@@ -2,11 +2,12 @@
 (counterpart of the parts of ``mxnet_tpu/test_utils.py`` the port needs)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import symbol as sym
 
-__all__ = ["deploy_twin_checkpoint"]
+__all__ = ["deploy_twin_checkpoint", "tiny_mlp_checkpoint"]
 
 
 def deploy_twin_checkpoint(batch=16, image=32, seed=0):
@@ -49,3 +50,23 @@ def deploy_twin_checkpoint(batch=16, image=32, seed=0):
     for n, s in zip(net.list_auxiliary_states(), aux_shapes):
         params["aux:" + n] = torch.ones(s) if n.endswith("_var") else torch.zeros(s)
     return net, params, input_shapes
+
+
+def tiny_mlp_checkpoint(in_dim=8, num_hidden=16, num_classes=4, seed=0):
+    """(symbol, params) of the tiny softmax MLP the serving tests share
+    (``mxnet_tpu/test_utils.py tiny_mlp_checkpoint``: the same symbol under
+    the same names, in_dim -> num_hidden -> relu -> num_classes,
+    SoftmaxOutput).  Weights N(0, 1) from ``np.random.RandomState(seed)``
+    drawn in argument order, as the JAX package draws them, so both
+    packages hold the same values; CPU tensors keyed by argument name."""
+    data = sym.Variable("data")
+    fc1 = sym.FullyConnected(data, num_hidden=num_hidden, name="fc1")
+    act = sym.Activation(fc1, act_type="relu", name="relu1")
+    fc2 = sym.FullyConnected(act, num_hidden=num_classes, name="fc2")
+    net = sym.SoftmaxOutput(fc2, name="softmax")
+    arg_shapes, _, _ = net.infer_shape(data=(2, in_dim))
+    rng = np.random.RandomState(seed)
+    params = {n: torch.from_numpy(rng.randn(*s).astype(np.float32))
+              for n, s in zip(net.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    return net, params

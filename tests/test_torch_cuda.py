@@ -1232,3 +1232,132 @@ def test_predictor_forward_makes_no_host_sync(cuda):
             p.forward(data=x)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+def _serve_stream(eng, xs, wait=60.0):
+    reqs = [eng.submit({"data": x}) for x in xs]
+    eng.start()
+    return [r.result(wait) for r in reqs]
+
+
+def test_tiny_mlp_engine_card_against_cpu(cuda):
+    """The tiny MLP served through an Engine on the card and one on the CPU,
+    the same seeded stream (1-5 samples over ladder (1, 2, 4), the 5s
+    dispatched directly): replies within rtol 1e-5, one compile a
+    signature, no ported kernel launched."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.test_utils import tiny_mlp_checkpoint
+
+    sym, params = tiny_mlp_checkpoint()
+    rng = np.random.RandomState(31)
+    xs = [rng.randn(n, 8).astype(np.float32) for n in (1, 2, 3, 4, 5, 2, 1)]
+    replies, stats = {}, {}
+    kernels.reset_launches()
+    for dev in ("cpu", cuda):
+        eng = serving.Engine(sym, params, {"data": (8,)}, ladder=serving.BucketLadder((1, 2, 4)),
+                             max_wait_ms=2.0, device=dev, start=False)
+        try:
+            eng.warmup()
+            replies[str(dev)] = _serve_stream(eng, xs)
+            stats[str(dev)] = eng.stats()
+        finally:
+            eng.close()
+    for got, ref, x in zip(replies["cuda"], replies["cpu"], xs):
+        assert isinstance(got[0], np.ndarray) and got[0].shape == (len(x), 4)
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, atol=1e-6)
+    assert stats["cuda"]["compiles"] == stats["cpu"]["compiles"] == 3 + 1
+    assert not any(k.wrapper.launches for k in kernels.KERNELS.values())
+
+
+def test_quantized_deploy_served_through_an_engine(cuda, tmp_path):
+    """``quantize_model``'s int8 CIFAR ResNet-8 from files through an Engine
+    on the card: one quantize_int8 launch per int8 quantize node and one
+    dequantize_int8 per dequantize node of int8 input, a forward, over the
+    warmup's forwards and the served batches; replies equal bit for bit
+    to a Predictor of the same bucket on the request's rows padded with
+    zeros."""
+    from mxnet_tpu_torch import ndarray, serving
+    from mxnet_tpu_torch.predictor import Predictor
+
+    qsym, qargs, qaux = _quantized_resnet8(cuda)
+    sfile, pfile = str(tmp_path / "q-symbol.json"), str(tmp_path / "q.params")
+    qsym.save(sfile)
+    ndarray.save(pfile, {**{"arg:" + k: v for k, v in qargs.items()},
+                         **{"aux:" + k: v for k, v in qaux.items()}})
+    rng = np.random.RandomState(32)
+    xs = [rng.randn(n, 3, 16, 16).astype(np.float32) for n in (1, 3, 4, 2, 1, 4)]
+    kernels.reset_launches()
+    eng = serving.Engine(sfile, pfile, {"data": (3, 16, 16)}, ladder=serving.BucketLadder((1, 4)),
+                         max_wait_ms=2.0, start=False)
+    try:
+        warm = eng.warmup()
+        eng.start()
+        replies = [eng.predict({"data": x}) for x in xs]  # one request a batch
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    forwards = len(warm) + eng.stats()["batches"]
+    assert eng.stats()["batches"] == len(xs)
+    n_q, n_dq = _plan_int8_nodes(eng._proto._exec)
+    assert n_q > 0 and n_dq > 0
+    assert kernels.quantize_int8.launches == n_q * forwards
+    assert kernels.dequantize_int8.launches == n_dq * forwards
+    ref = Predictor(sfile, pfile, {"data": (1, 3, 16, 16)})
+    for x, got in zip(xs, replies):
+        b = 1 if len(x) == 1 else 4
+        pad = np.zeros((b, 3, 16, 16), np.float32)
+        pad[:len(x)] = x
+        want = ref.with_shapes({"data": pad.shape}).forward(data=pad)[0].cpu().numpy()
+        np.testing.assert_array_equal(got[0], want[:len(x)])
+
+
+def test_full_fp32_across_threads_keeps_a_convolution_in_fp32(cuda):
+    """Thread A enters ``full_fp32``, thread B enters, A leaves, then B runs
+    a cuDNN convolution with TF32 allowed outside: B's result equals a
+    single-thread ``full_fp32`` run bit for bit (a per-block save and
+    restore turned TF32 back on under B)."""
+    import threading
+
+    from mxnet_tpu_torch.context import full_fp32
+
+    gen = torch.Generator().manual_seed(33)
+    x = torch.randn((8, 64, 56, 56), generator=gen).to(cuda)
+    w = torch.randn((64, 64, 3, 3), generator=gen).to(cuda) * 0.05
+
+    def conv():
+        return torch.nn.functional.conv2d(x, w, padding=1)
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with full_fp32():
+            ref = conv()
+        ev = {k: threading.Event() for k in ("a_in", "b_in", "a_out")}
+        got = {}
+
+        def a():
+            with full_fp32():
+                ev["a_in"].set()
+                ev["b_in"].wait(30)
+            ev["a_out"].set()
+
+        def b():
+            ev["a_in"].wait(30)
+            with full_fp32():
+                ev["b_in"].set()
+                ev["a_out"].wait(30)
+                got["out"] = conv()
+                torch.cuda.synchronize()
+
+        threads = [threading.Thread(target=f) for f in (a, b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert torch.equal(got["out"], ref)
+        assert torch.backends.cudnn.allow_tf32 is True
+        # the control: outside full_fp32 the convolution rounds through TF32
+        assert not torch.equal(conv(), ref)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

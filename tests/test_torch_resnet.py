@@ -190,15 +190,18 @@ def test_batchnorm_layer_running_stats_match_jax(scale_center):
 
 @pytest.fixture(scope="module")
 def resnet50_names():
-    """{version: {Gluon name: shape}} of the JAX resnet50_v1 / v2,
-    materialised by one forward at 32x32, root prefix stripped."""
+    """{version: {Gluon name: shape}} of the JAX resnet50_v1 / v2, root
+    prefix stripped: every parameter's shape as the JAX net's symbolic
+    forward infers it at 32x32 (nothing compiles; an eager forward took
+    ~12 s of XLA compiles for the same shapes)."""
     out = {}
     for version in (1, 2):
         jnet = jres.get_resnet(version, 50, classes=1000)
-        jnet.initialize()
-        jnet(nd.array(np.zeros((1, 3, 32, 32), np.float32)))
-        out[version] = {k[len(jnet.prefix):]: tuple(p.shape)
-                        for k, p in jnet.collect_params().items()}
+        sym = jnet(mx.sym.var("data"))
+        arg_shapes, _, aux_shapes = sym.infer_shape(data=(1, 3, 32, 32))
+        shapes = dict(zip(sym.list_arguments(), arg_shapes))
+        shapes.update(zip(sym.list_auxiliary_states(), aux_shapes))
+        out[version] = {k[len(jnet.prefix):]: tuple(shapes[k]) for k in jnet.collect_params()}
     return out
 
 
@@ -249,7 +252,9 @@ def narrow():
         cls = getattr(jres, "ResNetV%d" % version)
         jnet = cls(getattr(jres, block), **NARROW)
         jnet.initialize()
-        jnet(nd.array(np.zeros((1, 3, 32, 32), np.float32)))
+        # the weights' shapes by symbolic inference: the same values as a
+        # first forward draws, without its eager compiles
+        jnet.infer_shape(nd.array(np.zeros((1, 3, 32, 32), np.float32)))
         for k, p in jnet.collect_params().items():
             if k.endswith("running_mean"):
                 p.set_data(nd.array((rng.randn(*p.shape) * 0.1).astype(np.float32)))
@@ -337,7 +342,7 @@ def steps(request):
     rng = np.random.RandomState(3)
     x = _bf(rng.randn(BATCH, 3, STEP_IMAGE, STEP_IMAGE))
     y = rng.randint(0, NARROW["classes"], BATCH).astype(np.float32)
-    jnet(nd.array(x))
+    jnet.infer_shape(nd.array(x))  # the weights, as a first forward draws them
     params = _params(jnet)
     jstep, jstate, (names, li, ai) = jax_make_train_step(
         jnet, jloss.SoftmaxCrossEntropyLoss(), learning_rate=LR, momentum=MOMENTUM,

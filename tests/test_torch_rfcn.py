@@ -278,7 +278,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 port / "graph_passes" / "__init__.py", port / "graph_passes" / "ir.py",
                 port / "graph_passes" / "passes.py", port / "graph_passes" / "precision.py",
                 port / "analysis" / "__init__.py", port / "analysis" / "diagnostics.py",
-                port / "analysis" / "graph_analyzers.py", port / "analysis" / "numerics.py"):
+                port / "analysis" / "graph_analyzers.py", port / "analysis" / "numerics.py",
+                port / "analysis" / "lockcheck.py",
+                *(port / "serving" / (m + ".py") for m in (
+                    "__init__", "admission", "bucketing", "batcher", "engine", "warmup",
+                    "model_registry", "policy", "router"))):
         assert new in files
     for f in files:
         for mod in _imports(f):

@@ -153,20 +153,28 @@ def _targets_inputs(seed):
     return gt, info, rois, nz_rpn, nz_prop
 
 
+ANCHOR_KW = dict(feat_height=4, feat_width=6, feature_stride=16, scales=(1, 2),
+                 ratios=(0.5, 1, 2), batch_rois=32, fg_fraction=0.5)
+PROPOSAL_KW = dict(num_classes=4, class_agnostic=True, batch_images=B, batch_rois=2 * 16,
+                   fg_fraction=0.25)
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_targets():
+    """The two JAX target ops jitted once for every seed (the eager ops
+    would each compile on first use, and a jit a seed recompiles)."""
+    return (jax.jit(functools.partial(jtargets.rpn_anchor_target, **ANCHOR_KW)),
+            jax.jit(functools.partial(jtargets.proposal_target, **PROPOSAL_KW)))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_anchor_and_proposal_targets_match(seed):
     gt, info, rois, nz_rpn, nz_prop = _targets_inputs(seed)
-    kw = dict(feat_height=4, feat_width=6, feature_stride=16, scales=(1, 2),
-              ratios=(0.5, 1, 2), batch_rois=32, fg_fraction=0.5)
-    # jitted: the eager ops would each compile on first use
-    ref = jax.jit(functools.partial(jtargets.rpn_anchor_target, **kw))(
-        gt, info, nz_rpn)
-    got = ttargets.rpn_anchor_target(*map(_t, (gt, info, nz_rpn)), **kw)
-    kw2 = dict(batch_images=B, batch_rois=2 * 16, fg_fraction=0.25)
-    ref2 = jax.jit(functools.partial(jtargets.proposal_target, num_classes=4,
-                                     class_agnostic=True, **kw2))(rois, gt, nz_prop)
-    got2 = ttargets.proposal_target(*map(_t, (rois, gt, nz_prop)), num_classes=4,
-                                    class_agnostic=True, **kw2)
+    anchor_target, proposal_target = _jitted_targets()
+    ref = anchor_target(gt, info, nz_rpn)
+    got = ttargets.rpn_anchor_target(*map(_t, (gt, info, nz_rpn)), **ANCHOR_KW)
+    ref2 = proposal_target(rois, gt, nz_prop)
+    got2 = ttargets.proposal_target(*map(_t, (rois, gt, nz_prop)), **PROPOSAL_KW)
     label, bt, bw = (np.asarray(a) for a in ref)
     assert (label == 1).any() and (label == 0).any() and (label == -1).any()
     # the selection is exact: labels, weights and the sampled rois are equal;
