@@ -87,21 +87,40 @@ Phases, in order; any failure exits non-zero:
    ``ssd_serve``: the score step (forward, fp32 softmax, MultiBoxDetection
    at NMS 0.45, top 400) of SSD300 (8,732 anchors) in fp32 and, after
    ``cast("bfloat16")``, in bf16, each with three single-image requests and
-   three batches of 16, and of SSD512 (24,564 anchors) in fp32 at batch 16;
+   three batches of 16, and of SSD512 (24,564 anchors) in fp32 and bf16 at
+   batch 16;
    every answer checked (shape, finite, valid rows a sorted prefix of at
    most 400, class range, boxes in [0, 1]) with one NMS launch a call and
    no other kernel, the first batch of 16 under
    ``set_sync_debug_mode("error")``; ms, img/s, peak memory, kernels a call,
    busy and idle share.  ``ssd_train``: the train step (MultiBoxTarget with
    3:1 mining, the two losses, momentum SGD 0.9 at lr 1e-3) of SSD300 at
-   batch 8 in fp32 and bf16 (``compute_dtype``) and of SSD512 at batch 4 in
-   fp32: a warm-up step, one under the sync check and three timed steps,
+   batch 8 and of SSD512 at batch 4, each in fp32 and bf16
+   (``compute_dtype``): a warm-up step, one under the sync check and three
+   timed steps,
    finite loss parts, no ported kernel launched, fp32 masters; ms, img/s,
    peak memory, profile.  The kernels phase holds one batch-16 NMS call of
    each score path, and the batch-1 requests' calls, bit for bit against
    the plain version and times it at
-   N 8,732 (the staged scan) and N 24,564 (``nms_scan_kernel_global``),
-   checking which scan ran;
+   N 8,732 (the staged scan) and N 24,564 (``nms_scan_kernel_global``, the
+   fp32 and the bf16 score path), checking which scan ran.
+   ``map_ssd300``: the SSD300 detection-quality gate at its full recipe
+   (``quality.eval_ssd_map``: 3 classes, 2,000 bf16 steps at batch 4 on the
+   device data stream with warm-up and step decays, the fp32 score step over
+   500 held-out images, ``VOCMApMetric``) at seed 0: one NMS launch an eval
+   image and no other kernel, the mAP at or above the port's single-run
+   floor (``quality.gate_map.SINGLE_RUN_FLOORS``), steps/s and seconds;
+8f. map_rfcn_eval (after train_bf16) and map_frcnn_eval (after frcnn_train):
+   the gates' eval path at full width (``quality.eval_*_map.evaluate``:
+   fp32 forward, the decode, its per-class ``box_nms`` on the card at B 1,
+   N 512, ``VOCMApMetric``) over 20 held-out images, on the gates' 3-class
+   eval nets (R-FCN with live BatchNorm, Faster R-CNN at TEST counts
+   6000/300) holding the serve / frcnn phases' trunk and RPN weights: each
+   image launches a serve forward's kernels plus one NMS, every decode's
+   detections well formed (at most 100 rows, classes, falling scores >=
+   0.05, boxes inside the image), mAP finite in [0, 1] (a random head: not
+   a quality figure); the kernels phase holds each decode call bit for bit
+   against the plain version and times one (staged scan);
 8d. predictor: bench.py's ``MXNET_BENCH=predictor`` (the deploy twin of
    ``test_utils.deploy_twin_checkpoint``, batch 16, 32x32) as an fp32
    ``Predictor`` and its ``with_precision("bf16")`` and calibrated
@@ -172,7 +191,7 @@ masters, momentum and BatchNorm statistics; 2 warm-up steps, the second
 recording the backward kernels' inputs, and 3 timed steps at batch 1), each
 with its launch counts checked per request or step; phase 5 then holds the
 four bf16 kernel instances against their plain versions on the bf16 path's
-calls, each bf16 output within one bf16 ulp.  Phase 5 runs after phase 8b.
+calls, each bf16 output within one bf16 ulp.  Phase 5 runs after phase 8e.
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -259,6 +278,17 @@ SSD_CLASSES, SSD_LR = 20, 1e-3
 SSD_TRAIN_BATCH = {300: 8, 512: 4}
 SSD_SERVE_BATCH, SSD_REQUESTS, SSD_TIMED = 16, 3, 3
 SSD_TOPK = 400
+# the detection-quality gates (mxnet_tpu_torch/quality): map_ssd300 runs the
+# SSD300 gate's full recipe (gate_map.RECIPES["ssd300"]: full width, 3
+# classes, 2,000 bf16 steps at batch 4, the fp32 score step over 500
+# held-out images) at seed SEED and holds its mAP to the single-run floor
+# (gate_map.SINGLE_RUN_FLOORS); map_frcnn_eval and map_rfcn_eval run the
+# gates' eval path (forward, decode, the decode's box_nms on the card, the
+# metric) over the first MAP_EVAL_IMAGES held-out images, on the gates' eval
+# nets (3 classes; Faster R-CNN at TEST counts 6000/300, R-FCN with live
+# BatchNorm) holding the frcnn / serve phases' trunk and RPN weights
+MAP_EVAL_IMAGES = 20
+MAP_CLASSES = 3
 # bench.py MXNET_BENCH=predictor (main_predictor): the deploy twin of
 # test_utils.deploy_twin_checkpoint at batch 16, 32x32, inputs U(0, 1) from
 # RandomState(0), 200 forwards after the first; the int8 twin calibrated on
@@ -1815,18 +1845,20 @@ def phase_frcnn_serve_bf16(kernels, net, dev, card):
     return launches, res
 
 
-def device_ops(run, tries=3):
+def device_ops(run, tries=3, want=None):
     """The names of the device operations of one ``run()``, from the
-    profiler.  A profile that recorded no device operation at all is taken
-    again, up to ``tries`` times: the profiler has returned an empty
-    profile for a call whose kernels ran."""
+    profiler.  A profile that recorded no device operation at all, or none
+    whose name holds ``want``, is taken again, up to ``tries`` times: the
+    profiler has returned an empty profile for a call whose kernels ran,
+    and one that held the call's PyTorch kernels but not the two NMS
+    kernels launched after them."""
     for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         ops = sorted({e.key for e in prof.key_averages()
                       if float(getattr(e, "self_device_time_total", 0) or 0) > 0})
-        if ops:
+        if ops and (want is None or any(want in o for o in ops)):
             break
     return ops
 
@@ -1847,7 +1879,7 @@ def nms_at_train_size(kernels, calls):
     ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
     plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
     bound_ms, bound_by = bound(*work("nms_alive", args, k.wrapper(*args, **kw)))
-    ops = device_ops(lambda: k.wrapper(*args, **kw))
+    ops = device_ops(lambda: k.wrapper(*args, **kw), want="nms_scan_kernel")
     if not any("nms_scan_kernel" in o and "global" not in o for o in ops):
         fail("nms at N=%d did not run the staged scan: %s" % (n, ops))
     say("kernel nms_alive at the frcnn train size: N %d, %d words, %.4f ms (plain %.4f ms), "
@@ -2025,7 +2057,7 @@ def ssd_serve_path(kernels, net, anchors, size, label, card, batches, dev, seed,
 
 def phase_ssd_serve(kernels, dev, card):
     """SSD300 served in fp32 and, after ``cast("bfloat16")``, in bf16 (box
-    math fp32) at batch 1 and 16; SSD512 in fp32 at batch 16."""
+    math fp32) at batch 1 and 16; SSD512 in fp32 and bf16 at batch 16."""
     from mxnet_tpu_torch.gluon.model_zoo import SSD300, SSD512, VGGSSD
 
     launches, nms, reports = {}, {}, {}
@@ -2041,8 +2073,7 @@ def phase_ssd_serve(kernels, dev, card):
             "built in %.1f s" % (size, SSD_CLASSES, anchors.shape[0],
                                  sum(p.numel() for p in net.parameters()) / 1e6,
                                  time.perf_counter() - t0))
-        dtypes = ("float32", "bfloat16") if size == 300 else ("float32",)
-        for dtype in dtypes:
+        for dtype in ("float32", "bfloat16"):
             label = "ssd%d_serve%s" % (size, "_bf16" if dtype == "bfloat16" else "")
             if dtype == "bfloat16":
                 net.cast("bfloat16")
@@ -2131,11 +2162,11 @@ def ssd_train_path(kernels, size, dtype, card, dev, seed):
 
 
 def phase_ssd_train(kernels, dev, card):
-    """The SSD train step at full width: SSD300 in fp32 and bf16
-    (``compute_dtype="bfloat16"``, fp32 masters), SSD512 in fp32."""
+    """The SSD train step at full width, SSD300 and SSD512, each in fp32 and
+    in bf16 (``compute_dtype="bfloat16"``, fp32 masters)."""
     launches, reports = {}, {}
     for size, dtype, seed in ((300, None, SEED + 53), (300, "bfloat16", SEED + 54),
-                              (512, None, SEED + 55)):
+                              (512, None, SEED + 55), (512, "bfloat16", SEED + 56)):
         label = "ssd%d_train%s" % (size, "_bf16" if dtype else "")
         launches[label], reports[label] = ssd_train_path(kernels, size, dtype, card, dev, seed)
     return launches, reports
@@ -2156,7 +2187,8 @@ def nms_at_ssd_sizes(kernels, calls):
             torch.cuda.synchronize()
             compare("nms_alive", got, ref)
     out = {}
-    for label, scan in (("ssd300_serve", "staged"), ("ssd512_serve", "global")):
+    for label, scan in (("ssd300_serve", "staged"), ("ssd512_serve", "global"),
+                        ("ssd512_serve_bf16", "global")):
         args, kw = calls[label][0]
         B, n = args[1].shape
         words = -(-n // 64)
@@ -2166,7 +2198,7 @@ def nms_at_ssd_sizes(kernels, calls):
         plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
         alive = k.wrapper(*args, **kw)
         bound_ms, bound_by = bound(*work("nms_alive", args, alive))
-        ops = device_ops(lambda: k.wrapper(*args, **kw))
+        ops = device_ops(lambda: k.wrapper(*args, **kw), want="nms_scan_kernel")
         ran_global = any("nms_scan_kernel_global" in o for o in ops)
         ran_staged = any("nms_scan_kernel" in o and "global" not in o for o in ops)
         if (scan == "global") != ran_global or (scan == "staged") != ran_staged:
@@ -2178,7 +2210,7 @@ def nms_at_ssd_sizes(kernels, calls):
             for part, kernel in (("mask", "nms_mask_kernel"), ("scan", "nms_scan_kernel")):
                 if kernel in kname:
                     split[part] = kms
-        key = label.split("_")[0]
+        key = label.replace("_serve", "")
         say("kernel nms_alive at the %s score size: B %d, N %d, %d words, %d valid and %d "
             "kept, scratch %.1f MB; %.4f ms (plain %.4f ms; nms_mask_kernel %s ms, %s scan "
             "%s ms), bound %.6f ms by %s, bit-identical over %d calls; device ops %s" % (
@@ -2190,6 +2222,156 @@ def nms_at_ssd_sizes(kernels, calls):
                     key + "_scan": scan, key + "_mask_kernel_ms": split["mask"],
                     key + "_scan_kernel_ms": split["scan"]})
     return out
+
+
+def phase_map_ssd300(kernels, card):
+    """The SSD300 quality gate's full recipe at seed SEED through its entry
+    point (``quality.eval_ssd_map.run``): one NMS launch per eval image and
+    no other kernel, an mAP at or above the single-run floor.  -> (launches,
+    report)."""
+    from mxnet_tpu_torch.quality import eval_ssd_map, gate_map
+
+    floor = gate_map.SINGLE_RUN_FLOORS["ssd300"]
+    if floor is None:
+        fail("map_ssd300: gate_map.SINGLE_RUN_FLOORS has no SSD300 floor")
+    args = eval_ssd_map.parse(gate_map.RECIPES["ssd300"][1] + ["--seed", str(SEED)])
+    kernels.reset_launches()
+    res = eval_ssd_map.run(args)
+    launches = counts(kernels)
+    expect = {n: args.eval_images * (n == "nms_alive") for n in kernels.KERNELS}
+    if launches != expect:
+        fail("map_ssd300 launched %s, expected %s" % (launches, expect))
+    if not (math.isfinite(res["map"]) and 0.0 <= res["map"] <= 1.0):
+        fail("map_ssd300: mAP %r" % res["map"])
+    res.update(floor=floor, steps_per_s=res["steps"] / res["train_s"])
+    say("map_ssd300 on %s: mAP %.4f (single-run floor %.4f) after %d bf16 steps at batch %d "
+        "(%.1f s, %.2f steps/s), eval of %d images %.1f s; launches %s" % (
+            card, res["map"], floor, res["steps"], args.batch, res["train_s"],
+            res["steps_per_s"], args.eval_images, res["eval_s"], json.dumps(launches)))
+    if res["map"] < floor:
+        fail("map_ssd300: mAP %.4f below the single-run floor %.4f" % (res["map"], floor))
+    return launches, res
+
+
+def map_eval_net(model, src, dev):
+    """The gate's eval net of ``model`` ("frcnn": the TEST-count twin,
+    "rfcn": live BatchNorm), MAP_CLASSES classes, holding ``src``'s tensors
+    wherever name and shape agree (trunk, RPN).  -> (net, tensors taken,
+    tensors)."""
+    from mxnet_tpu_torch import train_frcnn, train_fused
+
+    gen = torch.Generator().manual_seed(SEED + 61)
+    if model == "frcnn":
+        net, _, _ = train_frcnn.build_net(True, classes=MAP_CLASSES,
+                                          rpn_pre_nms=FRCNN_SERVE_NMS[0],
+                                          rpn_post_nms=FRCNN_SERVE_NMS[1], device=dev,
+                                          generator=gen)
+    else:
+        net, _, _ = train_fused.build_net(True, classes=MAP_CLASSES, device=dev,
+                                          generator=gen, frozen_bn=False)
+    own = net.state_dict()
+    shared = {k: v for k, v in src.state_dict().items()
+              if k in own and own[k].shape == v.shape}
+    net.load_state_dict(shared, strict=False)
+    return net, len(shared), len(own)
+
+
+def check_detections(dets, net, what):
+    """A decode's answer: numpy (1, K, 6), K <= 100; one all −1 row, or
+    rows of class ids in [0, classes), scores in [0.05, 1] falling, finite
+    boxes inside the image with x1 <= x2 and y1 <= y2.  -> K."""
+    H, W = net.image_shape
+    if dets.ndim != 3 or dets.shape[0] != 1 or dets.shape[2] != 6 or dets.dtype != np.float32:
+        fail("%s: detections %s %s" % (what, dets.dtype, dets.shape))
+    d = dets[0]
+    if d.shape[0] == 1 and (d == -1).all():
+        return 0
+    cid, score, box = d[:, 0], d[:, 1], d[:, 2:]
+    if not (d.shape[0] <= 100 and np.isfinite(d).all()
+            and ((cid >= 0) & (cid < net.classes) & (cid == np.round(cid))).all()
+            and ((score >= 0.05) & (score <= 1)).all() and (np.diff(score) <= 0).all()
+            and (box >= 0).all() and (box[:, [0, 2]] <= W - 1).all()
+            and (box[:, [1, 3]] <= H - 1).all()
+            and (box[:, 0] <= box[:, 2]).all() and (box[:, 1] <= box[:, 3]).all()):
+        fail("%s: malformed detections %s" % (what, d[:4].tolist()))
+    return d.shape[0]
+
+
+def phase_map_eval(kernels, model, src, dev, card):
+    """The gate's eval path of ``model`` at full width over the first
+    MAP_EVAL_IMAGES held-out images (``quality.eval_*_map.evaluate``): each
+    image's forward launches as a serve forward, plus one NMS for the
+    decode's ``box_nms`` (B 1, N 512, per-class ids), which is recorded for
+    the kernels phase; the detections well formed, the mAP finite in [0, 1].
+    -> (launches, the decode's NMS calls, report)."""
+    from mxnet_tpu_torch.quality import common, eval_frcnn_map, eval_rfcn_map
+
+    mod = eval_frcnn_map if model == "frcnn" else eval_rfcn_map
+    net, taken, total = map_eval_net(model, src, dev)
+    mod.evaluate(net, 1, dev)  # cuDNN and allocator set-up
+    torch.cuda.synchronize()
+    per_image = dict(frcnn_expect(kernels) if model == "frcnn" else per_forward(net))
+    per_image["nms_alive"] += 1
+    kernels.reset_launches()
+    out = []
+    t0 = time.perf_counter()
+    calls = capture_calls(kernels, ["nms_alive"],
+                          lambda: out.append(mod.evaluate(net, MAP_EVAL_IMAGES, dev)))["nms_alive"]
+    seconds = time.perf_counter() - t0
+    launches = counts(kernels)
+    value, dets = out[0]
+    decode = [c for c in calls if len(c[0]) > 2 and c[0][2] is not None]
+    if len(decode) != MAP_EVAL_IMAGES or any(
+            tuple(a[1].shape) != (1, common.NMS_CAP) for a, _ in decode):
+        fail("map_%s_eval: %d decode NMS calls of shapes %s, expected %d of (1, %d)" % (
+            model, len(decode), sorted({tuple(a[1].shape) for a, _ in decode}),
+            MAP_EVAL_IMAGES, common.NMS_CAP))
+    expect = {n: c * MAP_EVAL_IMAGES for n, c in per_image.items()}
+    if launches != expect:
+        fail("map_%s_eval launched %s, expected %s" % (model, launches, expect))
+    kept = [check_detections(d, net, "map_%s_eval" % model) for d in dets]
+    if not (math.isfinite(value) and 0.0 <= value <= 1.0):
+        fail("map_%s_eval: mAP %r" % (model, value))
+    valid = [int(a[1].sum()) for a, _ in decode]
+    res = dict(map=value, images=MAP_EVAL_IMAGES, seconds=seconds,
+               ms_per_image=seconds / MAP_EVAL_IMAGES * 1e3, kept=kept, nms_valid_rows=valid,
+               tensors_taken=taken, tensors=total)
+    say("map_%s_eval on %s: %d held-out images in %.2f s (%.1f ms an image), detections "
+        "kept %s, decode NMS valid rows %s, mAP %.4f (random head: not a quality figure); "
+        "%d of %d tensors from the smoke's net; launches %s" % (
+            model, card, MAP_EVAL_IMAGES, seconds, res["ms_per_image"], kept, valid, value,
+            taken, total, json.dumps(launches)))
+    del net
+    torch.cuda.empty_cache()
+    return launches, decode, res
+
+
+def nms_at_decode(kernels, calls):
+    """NMS on the quality gates' decode calls (``box_nms`` over the padded
+    or cut rows of one image: B 1, N 512, per-class ids, ``plus_one`` 0):
+    each call bit for bit against the plain version; on the first, the
+    kernel's device time, the plain version's, the bound and the device
+    operations of one call (the staged scan).  -> keys for the NMS row."""
+    k = kernels.KERNELS["nms_alive"]
+    for args, kw in calls:
+        got, ref = k.wrapper(*args, **kw), k.plain(*args, **kw)
+        torch.cuda.synchronize()
+        compare("nms_alive", got, ref)
+    args, kw = calls[0]
+    B, n = args[1].shape
+    ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
+    plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
+    alive = k.wrapper(*args, **kw)
+    bound_ms, bound_by = bound(*work("nms_alive", args, alive))
+    ops = device_ops(lambda: k.wrapper(*args, **kw), want="nms_scan_kernel")
+    if not any("nms_scan_kernel" in o and "global" not in o for o in ops):
+        fail("nms at the decode's N=%d did not run the staged scan: %s" % (n, ops))
+    say("kernel nms_alive at the decode size: B %d, N %d, %d valid and %d kept, %.4f ms "
+        "(plain %.4f ms), bound %.6f ms by %s, bit-identical over %d calls; device ops %s" % (
+            B, n, int(args[1].sum()), int(alive.sum()), ms, plain_ms, bound_ms, bound_by,
+            len(calls), ops))
+    return dict(decode_batch=B, decode_n=n, decode_calls=len(calls), decode_ms=ms,
+                decode_plain_ms=plain_ms, decode_bound_ms=bound_ms, decode_bound_by=bound_by)
 
 
 def phase_small_ssd(dev):
@@ -3302,6 +3484,8 @@ def main():
     net_bf16, serve_bf16_launches = phase("serve_bf16", phase_serve_bf16, kernels, dev)
     train_bf16_launches, bwd_captured_bf16 = phase("train_bf16", phase_train_bf16,
                                                    kernels, net, dev, name)
+    map_rfcn_launches, rfcn_decode_nms, map_rfcn = phase(
+        "map_rfcn_eval", phase_map_eval, kernels, "rfcn", net, dev, name)
     int8_launches, int8_captured, int8_expect = phase("int8", phase_int8, kernels, dev, name)
     resnet_launches = phase("resnet", phase_resnet_train, kernels, dev, name)
     phase("resnet_card_vs_cpu", phase_resnet_card_vs_cpu, dev)
@@ -3309,6 +3493,8 @@ def main():
         "frcnn_serve", phase_frcnn_serve, kernels, dev, name)
     frcnn_train_launches, frcnn_bf16_launches, frcnn_nms, frcnn_train = phase(
         "frcnn_train", phase_frcnn_train, kernels, frcnn_net, dev, name)
+    map_frcnn_launches, frcnn_decode_nms, map_frcnn = phase(
+        "map_frcnn_eval", phase_map_eval, kernels, "frcnn", frcnn_net, dev, name)
     frcnn_serve_bf16_launches, frcnn_serve_bf16 = phase(
         "frcnn_serve_bf16", phase_frcnn_serve_bf16, kernels, frcnn_net, dev, name)
     del frcnn_net
@@ -3324,6 +3510,9 @@ def main():
                                                    name)
     ssd_train_launches, ssd_train = phase("ssd_train", phase_ssd_train, kernels, dev, name)
     say("ssd: %s" % json.dumps({"serve": ssd_serve, "train": ssd_train}))
+    map_ssd300_launches, map_ssd300 = phase("map_ssd300", phase_map_ssd300, kernels, name)
+    say("map: %s" % json.dumps({"ssd300": map_ssd300, "frcnn_eval": map_frcnn,
+                                "rfcn_eval": map_rfcn}))
     predictor_res = phase("predictor", phase_predictor, kernels, dev, name)
     with tempfile.TemporaryDirectory() as workdir:
         predictor_resnet_launches, predictor_resnet_res, deploy = phase(
@@ -3343,13 +3532,16 @@ def main():
                 "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches,
                 **ssd_serve_launches, **ssd_train_launches,
                 "predictor_resnet": predictor_resnet_launches,
-                "serve_engine": serve_engine_launches}
+                "serve_engine": serve_engine_launches,
+                "map_ssd300": map_ssd300_launches, "map_frcnn_eval": map_frcnn_launches,
+                "map_rfcn_eval": map_rfcn_launches}
 
     def kernel_rows():
         rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
         nms_row = next(r for r in rows if r["name"] == "nms_alive")
         nms_row.update(nms_at_train_size(kernels, frcnn_nms))
         nms_row.update(nms_at_ssd_sizes(kernels, ssd_nms))
+        nms_row.update(nms_at_decode(kernels, rfcn_decode_nms + frcnn_decode_nms))
         rows += phase_kernels(kernels, net_bf16, launches, bwd_captured_bf16, (), dev,
                               bf16=True)
         edge = int8_edge_calls(kernels, dev)
@@ -3366,7 +3558,7 @@ def main():
 
     rows = phase("kernels", kernel_rows)
     del net, net_bf16, int8_captured, bwd_captured, bwd_captured_bf16, train_nms, frcnn_nms
-    del ssd_nms
+    del ssd_nms, rfcn_decode_nms, frcnn_decode_nms
     torch.cuda.empty_cache()
     phase("small_input", phase_small_input, dev)
     phase("small_train", phase_small_train, dev)

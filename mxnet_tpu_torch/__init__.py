@@ -15,7 +15,8 @@ Faster R-CNN VGG16 (``gluon.model_zoo.detection.faster_rcnn_vgg16``,
 frontend and its training path (``symbol``, ``executor``, ``module``), and
 deployment: ``predictor.Predictor`` over the graph passes
 (``graph_passes``), the graph analyzers (``analysis``) and the bf16 and int8
-precision tiers (``graph_passes.precision``).
+precision tiers (``graph_passes.precision``), serving (``serving``), and the
+detection-quality gates (``quality``, ``metric.VOCMApMetric``).
 """
 from .context import full_fp32, resolve_device
 

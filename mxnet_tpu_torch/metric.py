@@ -1,9 +1,10 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``; reference
 python/mxnet/metric.py): ``EvalMetric``, ``Accuracy``, ``TopKAccuracy``,
 ``CrossEntropy``, ``CompositeEvalMetric`` and ``create``, what
-``Module.fit`` and ``Module.score`` use.  An update reads its labels and
-predictions to the host (a synchronisation) and sums in numpy, as the JAX
-package's metrics do.  The other metrics are ROADMAP A11.
+``Module.fit`` and ``Module.score`` use, and the detection gates'
+``VOCMApMetric`` (``examples/ssd/metric.py``).  An update reads its labels
+and predictions to the host (a synchronisation) and sums in numpy, as the
+JAX package's metrics do.  The other metrics are ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy
 import torch
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "create", "register"]
+           "CrossEntropy", "VOCMApMetric", "create", "register"]
 
 _METRIC_REGISTRY = {}
 
@@ -171,6 +172,100 @@ class CrossEntropy(EvalMetric):
             prob = pred[numpy.arange(label.shape[0]), label]
             self.sum_metric += (-numpy.log(prob + self.eps)).sum()
             self.num_inst += label.shape[0]
+
+
+class VOCMApMetric:
+    """Mean average precision of detections over the classes that have
+    ground truth (``examples/ssd/metric.py VOCMApMetric``; reference
+    ``example/ssd/evaluate/eval_metric.py`` MApMetric / VOC07MApMetric).
+
+    ``update(dets, labels)``: detections (B, A, 6) ``[cls, score, x1, y1,
+    x2, y2]`` (cls −1: no detection) and ground truth (B, N, 5+) ``[cls,
+    x1, y1, x2, y2]`` (cls −1: padding), numpy arrays or CPU tensors: the
+    caller copies the detections to the host once per image.  Per image the
+    detections are taken by falling score; one is a true positive when its
+    best IoU among the ground truths of its class reaches ``iou_thresh``
+    and that ground truth is not matched yet (a second detection of a
+    matched ground truth is a false positive).  ``get() -> ("mAP",
+    value)``: a class with ground truth and no detection scores AP 0;
+    ``use_voc07`` takes the 11-point AP, else the area under the
+    monotone precision envelope.  Host numpy, the IoU in the inputs' dtype
+    and the AP in float64, as the JAX class computes them.
+    """
+
+    def __init__(self, iou_thresh=0.5, class_names=None, use_voc07=False):
+        self.iou_thresh = iou_thresh
+        self.class_names = class_names
+        self.use_voc07 = use_voc07
+        self.reset()
+
+    def reset(self):
+        self._records = {}  # class -> [(score, tp)]
+        self._gt_counts = {}
+
+    @staticmethod
+    def _iou(box, boxes):
+        ix1 = numpy.maximum(box[0], boxes[:, 0])
+        iy1 = numpy.maximum(box[1], boxes[:, 1])
+        ix2 = numpy.minimum(box[2], boxes[:, 2])
+        iy2 = numpy.minimum(box[3], boxes[:, 3])
+        inter = numpy.maximum(ix2 - ix1, 0) * numpy.maximum(iy2 - iy1, 0)
+        union = ((box[2] - box[0]) * (box[3] - box[1])
+                 + (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]) - inter)
+        return inter / numpy.maximum(union, 1e-12)
+
+    def update(self, dets, labels):
+        dets, labels = _as_np(dets), _as_np(labels)
+        for b in range(dets.shape[0]):
+            gt = labels[b]
+            gt = gt[gt[:, 0] >= 0]
+            for c in numpy.unique(gt[:, 0]).astype(int):
+                self._gt_counts[c] = self._gt_counts.get(c, 0) + int((gt[:, 0] == c).sum())
+            det = dets[b]
+            det = det[det[:, 0] >= 0]
+            det = det[numpy.argsort(-det[:, 1])]
+            matched = numpy.zeros(gt.shape[0], dtype=bool)
+            for row in det:
+                c = int(row[0])
+                idx = numpy.where(gt[:, 0] == c)[0]
+                tp = 0
+                if idx.size:
+                    ious = self._iou(row[2:6], gt[idx, 1:5])
+                    best = numpy.argmax(ious)
+                    if ious[best] >= self.iou_thresh and not matched[idx[best]]:
+                        matched[idx[best]] = True
+                        tp = 1
+                self._records.setdefault(c, []).append((float(row[1]), tp))
+
+    def _average_precision(self, rec, prec):
+        if self.use_voc07:
+            ap = 0.0
+            for t in numpy.arange(0.0, 1.1, 0.1):
+                ap += (prec[rec >= t].max() if (rec >= t).any() else 0.0) / 11.0
+            return ap
+        mrec = numpy.concatenate([[0.0], rec, [1.0]])
+        mpre = numpy.concatenate([[0.0], prec, [0.0]])
+        for i in range(mpre.size - 1, 0, -1):
+            mpre[i - 1] = max(mpre[i - 1], mpre[i])
+        idx = numpy.where(mrec[1:] != mrec[:-1])[0]
+        return float(((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]).sum())
+
+    def get(self):
+        aps = []
+        for c in sorted(set(self._records) | set(self._gt_counts)):
+            npos = self._gt_counts.get(c, 0)
+            if npos == 0:  # detections of a class without ground truth
+                continue
+            recs = sorted(self._records.get(c, []), key=lambda x: -x[0])
+            if not recs:
+                aps.append(0.0)
+                continue
+            tps = numpy.array([tp for _, tp in recs], dtype=numpy.float64)
+            tp_cum = numpy.cumsum(tps)
+            fp_cum = numpy.cumsum(1.0 - tps)
+            aps.append(self._average_precision(
+                tp_cum / npos, tp_cum / numpy.maximum(tp_cum + fp_cum, 1e-12)))
+        return "mAP", float(numpy.mean(aps)) if aps else 0.0
 
 
 register(Accuracy, "acc", "accuracy")

@@ -26,8 +26,9 @@ from .gluon.model_zoo.detection import DeformableRFCN, rfcn_resnet101
 from .ops import elemwise
 from .ops import nn as ops_nn
 
-__all__ = ["synthetic_coco", "noise_shapes", "rpn_losses", "rcnn_losses",
-           "detection_train_step", "make_rfcn_train_step", "build_net", "run_bench"]
+__all__ = ["synthetic_coco", "synthetic_coco_device", "paint_rectangles", "noise_shapes",
+           "rpn_losses", "rcnn_losses", "detection_train_step", "make_rfcn_train_step",
+           "build_net", "run_bench"]
 
 
 def synthetic_coco(rng, batch, image_shape, classes, max_gts):
@@ -49,6 +50,59 @@ def synthetic_coco(rng, batch, image_shape, classes, max_gts):
             gt[b, j] = [cls, x1, y1, x1 + bw, y1 + bh]
             data[b, cls % 3, int(y1):int(y1 + bh), int(x1):int(x1 + bw)] += 0.8
     im_info = np.tile(np.array([h, w, 1.0], np.float32), (batch, 1))
+    return data, im_info, gt
+
+
+def paint_rectangles(data, gt, scale=1.0):
+    """Add 0.8 to ``data`` (B, 3, H, W), in place, inside each valid row of
+    ``gt`` (B, G, 5) ``[cls, x1, y1, x2, y2]`` (cls −1: padding), on channel
+    ``cls % 3``: rows ``int(y1·scale) <= y < int(y2·scale)`` and columns
+    ``int(x1·scale) <= x < int(x2·scale)``, the host generators' bounds for
+    non-negative coordinates.  Overlapping rectangles of one channel add
+    up, as the host generators paint them.  -> ``data``."""
+    H, W = data.shape[-2:]
+    dev = data.device
+    valid = gt[..., 0] >= 0
+    x1, y1, x2, y2 = (torch.floor(gt[..., i] * scale) for i in range(1, 5))
+    yy = torch.arange(H, device=dev, dtype=gt.dtype)
+    xx = torch.arange(W, device=dev, dtype=gt.dtype)
+    rows = (yy >= y1[..., None]) & (yy < y2[..., None]) & valid[..., None]  # (B, G, H)
+    cols = (xx >= x1[..., None]) & (xx < x2[..., None])                    # (B, G, W)
+    chan = torch.nn.functional.one_hot(
+        torch.clamp(gt[..., 0], min=0).to(torch.int64) % 3, 3).to(data.dtype)
+    data += 0.8 * torch.einsum("bgc,bgh,bgw->bchw", chan, rows.to(data.dtype),
+                               cols.to(data.dtype))
+    return data
+
+
+def synthetic_coco_device(generator, batch, image_shape, classes, max_gts):
+    """:func:`synthetic_coco` drawn on the device of ``generator`` (a
+    ``torch.Generator``): noise U(0, 0.2), 1 to min(max_gts, 8) rectangles of
+    0.08–0.5 of the image's height and width each, a class below
+    ``classes``, painted +0.8 onto channel ``cls % 3`` with the host
+    generator's integer bounds; gt rows in pixels, −1-padded.  The same
+    construction as the host generator (not its draws), with no host work
+    and no copy (the JAX example's ``synthetic_coco_device``).  -> (data
+    (B, 3, H, W), im_info (B, 3), gt (B, max_gts, 5)), float32."""
+    h, w = image_shape
+    dev = generator.device
+
+    def u(*shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    data = u(batch, 3, h, w) * 0.2
+    n = torch.randint(1, min(max_gts, 8) + 1, (batch,), generator=generator, device=dev)
+    cls = torch.randint(0, classes, (batch, max_gts), generator=generator, device=dev)
+    bw = (u(batch, max_gts) * 0.42 + 0.08) * w
+    bh = (u(batch, max_gts) * 0.42 + 0.08) * h
+    x1 = u(batch, max_gts) * (w - bw)
+    y1 = u(batch, max_gts) * (h - bh)
+    valid = torch.arange(max_gts, device=dev) < n[:, None]
+    gt = torch.where(valid[..., None],
+                     torch.stack([cls.to(torch.float32), x1, y1, x1 + bw, y1 + bh], -1), -1.0)
+    paint_rectangles(data, gt)
+    im_info = torch.ones((batch, 3), device=dev)
+    im_info[:, 0], im_info[:, 1] = h, w
     return data, im_info, gt
 
 
@@ -214,15 +268,16 @@ def make_rfcn_train_step(net, batch, learning_rate=5e-4, momentum=0.9,
 
 
 def build_net(resnet101, image_shape=None, classes=None, device=None,
-              generator=None):
+              generator=None, frozen_bn=True):
     """-> (net, image_shape, classes): the full ResNet-101 model of the JAX
     example's ``build_net`` (max_gts 16), or its tiny CPU configuration with
-    the same graph; seeded random weights."""
+    the same graph; seeded random weights.  ``frozen_bn=False``: the trunk's
+    BatchNorms train on batch statistics (``DeformableRFCN``)."""
     if resnet101:
         shape = tuple(image_shape or (608, 1024))
         classes = classes or 80
         net = rfcn_resnet101(classes=classes, image_shape=shape, max_gts=16,
-                             device=device, generator=generator)
+                             frozen_bn=frozen_bn, device=device, generator=generator)
     else:
         shape = tuple(image_shape or (64, 96))
         classes = classes or 3
@@ -230,7 +285,7 @@ def build_net(resnet101, image_shape=None, classes=None, device=None,
             classes=classes, image_shape=shape, units=(1, 1, 1, 1),
             scales=(1, 2), ratios=(0.5, 1, 2), rpn_pre_nms=200,
             rpn_post_nms=32, batch_rois=16, rpn_batch=32, max_gts=8,
-            device=device, generator=generator)
+            frozen_bn=frozen_bn, device=device, generator=generator)
     return net, shape, classes
 
 

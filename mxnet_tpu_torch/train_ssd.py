@@ -28,10 +28,10 @@ from .context import full_fp32, resolve_device
 from .gluon.model_zoo.ssd import SSD300, SSD512, VGGSSD
 from .ops import detection as ops_det
 from .ops import elemwise, nn as ops_nn
-from .train_fused import _dtype
+from .train_fused import _dtype, paint_rectangles
 
-__all__ = ["synthetic_voc", "ssd_losses", "make_ssd_train_step", "make_score_step",
-           "run_bench", "tiny_config"]
+__all__ = ["synthetic_voc", "synthetic_voc_device", "ssd_losses", "make_ssd_train_step",
+           "make_score_step", "run_bench", "tiny_config"]
 
 # the JAX example's CPU smoke: 128², 3 classes, batch 2, lr 5e-3, the first
 # four sources of SSD300 and no tail
@@ -58,6 +58,34 @@ def synthetic_voc(rng, batch, size, classes, max_gts=8):
             gt[b, j] = [cls, x1, y1, x1 + w, y1 + h]
             px = (np.array([x1, y1, x1 + w, y1 + h]) * size).astype(int)
             data[b, cls % 3, px[1]:px[3], px[0]:px[2]] += 0.8
+    return data, gt
+
+
+def synthetic_voc_device(generator, batch, size, classes, max_gts=8):
+    """:func:`synthetic_voc` drawn on the device of ``generator`` (a
+    ``torch.Generator``): noise U(0, 0.2), 1 to 4 rectangles of 0.1–0.5 of
+    the side each, a class below ``classes``, painted +0.8 onto channel
+    ``cls % 3`` with the host generator's integer bounds (``int(v ·
+    size)``); gt rows in [0, 1], −1-padded.  The same construction as the
+    host generator (not its draws), with no host work and no copy (the JAX
+    gate's ``synthetic_voc_device``).  -> (data (B, 3, size, size), gt (B,
+    max_gts, 5)), float32."""
+    dev = generator.device
+
+    def u(*shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    data = u(batch, 3, size, size) * 0.2
+    n = torch.randint(1, 5, (batch,), generator=generator, device=dev)
+    cls = torch.randint(0, classes, (batch, max_gts), generator=generator, device=dev)
+    w = u(batch, max_gts) * 0.4 + 0.1
+    h = u(batch, max_gts) * 0.4 + 0.1
+    x1 = u(batch, max_gts) * (1.0 - w)
+    y1 = u(batch, max_gts) * (1.0 - h)
+    valid = torch.arange(max_gts, device=dev) < n[:, None]
+    gt = torch.where(valid[..., None],
+                     torch.stack([cls.to(torch.float32), x1, y1, x1 + w, y1 + h], -1), -1.0)
+    paint_rectangles(data, gt, scale=size)
     return data, gt
 
 

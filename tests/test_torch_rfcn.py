@@ -282,7 +282,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 port / "analysis" / "lockcheck.py",
                 *(port / "serving" / (m + ".py") for m in (
                     "__init__", "admission", "bucketing", "batcher", "engine", "warmup",
-                    "model_registry", "policy", "router"))):
+                    "model_registry", "policy", "router")),
+                *(port / "quality" / (m + ".py") for m in (
+                    "__init__", "common", "gate_map", "eval_ssd_map", "eval_frcnn_map",
+                    "eval_rfcn_map"))):
         assert new in files
     for f in files:
         for mod in _imports(f):

@@ -31,6 +31,7 @@ from mxnet_tpu.gluon import nn as jgnn
 from mxnet_tpu.gluon.functional import functionalize
 from mxnet_tpu.ops import detection as jdet
 from mxnet_tpu.test_utils import load_module_by_path
+from mxnet_tpu_torch import metric as tmetric
 from mxnet_tpu_torch import symbol as tsym
 from mxnet_tpu_torch import train_ssd
 from mxnet_tpu_torch.gluon import nn as tnn
@@ -354,14 +355,47 @@ def test_tiny_ssd_names_and_forward(tiny):
     np.testing.assert_allclose(box.numpy(), jbox, rtol=1e-4, atol=1e-4 * np.abs(jbox).max())
 
 
-def test_tiny_ssd_score_step(tiny):
+@pytest.fixture(scope="module")
+def tiny_scores(tiny):
+    """The JAX score step's and the port's detections of the tiny batch, on
+    the same weights: (got, ref)."""
     score, vals = tiny["jtf"].make_score_step(tiny["jnet"], tiny["janchors"])
     ref = np.asarray(jax.jit(score)(vals, jnp.asarray(tiny["data"]), jax.random.PRNGKey(0)))
     got = train_ssd.make_score_step(tiny["net"], tiny["anchors"])(_t(tiny["data"])).numpy()
+    return got, ref
+
+
+def test_tiny_ssd_score_step(tiny_scores):
+    got, ref = tiny_scores
     assert got.shape == (B, 1528, 6)
     np.testing.assert_array_equal(got[..., 0], ref[..., 0])
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
     assert ((ref[..., 0] >= 0).sum(1) > 0).all()
+
+
+def test_tiny_ssd_score_step_map(tiny, tiny_scores):
+    """The port's ``VOCMApMetric`` of the port's detections equals the JAX
+    gate's metric of the JAX score step's, on the batch's labels and on
+    labels made of some detected boxes (so that some detections are true
+    positives), with and without the 11-point AP."""
+    got, ref = tiny_scores
+    jmetric = load_module_by_path(str(ROOT / "examples" / "ssd" / "metric.py"),
+                                  name="_ssd_metric_for_port_ssd_tests")
+    hit = np.full((B, 4, 5), -1.0, np.float32)
+    for b in range(B):
+        kept = ref[b][ref[b][:, 0] >= 0]
+        hit[b, :3] = kept[[0, 5, 20]][:, [0, 2, 3, 4, 5]]
+        hit[b, 3] = [1, 0.1, 0.1, 0.6, 0.6]
+    values = []
+    for labels in (tiny["gt"], hit):
+        for voc07 in (False, True):
+            mine = tmetric.VOCMApMetric(use_voc07=voc07)
+            theirs = jmetric.VOCMApMetric(use_voc07=voc07)
+            mine.update(got, labels)
+            theirs.update(ref, labels)
+            assert mine.get() == theirs.get(), (voc07, mine.get(), theirs.get())
+            values.append(mine.get()[1])
+    assert values[2] > 0
 
 
 # images of the bf16 score test: of seeds 100-107 these give the same
