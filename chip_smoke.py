@@ -46,6 +46,29 @@ Phases, in order; any failure exits non-zero:
    bf16 masters fp32, no ported kernel launched; then the first step at
    batch 2 on the card against the CPU from the same weights (loss, two
    weights' updates, a running variance);
+7b. imperative: the imperative frontend (``mx.nd``, ``autograd``,
+   ``gluon.Trainer``).  ``imperative_rfcn``: the port's copy of
+   ``examples/deformable_rfcn/train.py`` as the example runs (3 epochs x 6
+   batches, 3x64x64, batch 2, its loss falling), with every path kernel
+   (``dconv_col``, ``dconv_col_bwd``, ``nms_alive``, ``psroi_abuild``,
+   ``psroi_abuild_bwd``) launched; its ``--bench`` at 3x64x64 and
+   3x512x512, 10 steps each (ms and launches a step), the five kernels'
+   calls of one more step at each shape held against their plain versions
+   in the kernel rows; at each shape its first steps (2 at 64x64, 3 at
+   512x512) against the CPU's from the same weights, batch and anchor
+   sampling (the first step's losses within rtol ``IMPERATIVE_RFCN_RTOL``,
+   its update of the parameters and the later losses within
+   ``IMPERATIVE_RFCN_UPDATE_RTOL``).  ``imperative_resnet``: ResNet-50 v1
+   at 224², batch 32, 3 steps of ``autograd.record`` -> softmax
+   cross-entropy -> ``backward`` -> ``Trainer("sgd", lr 0.1, momentum 0.9,
+   wd 1e-4)`` against ``make_train_step`` with the same SGD (its weight
+   decay the gradient of (wd/2)·Σ‖p‖² added to the loss) from the same
+   weights on the same batches, under deterministic cuDNN, in fp32 timed in
+   turns (a second ``make_train_step`` run must repeat the first's bits)
+   and in float64 (beside a ``make_train_step`` run started one ulp up,
+   which shows how far the trajectory carries a rounding): losses and the
+   weights after every step within ``IMPERATIVE_RESNET_RTOL``, no ported
+   kernel launched;
 8. frcnn: the Faster R-CNN VGG16 path of bench.py's third headline
    (``MXNET_BENCH=frcnn``; the JAX example's ``build_net(vgg16=True)``: 20
    classes, 608x1024, seeded N(0, 2/fan_in) weights): serve with the
@@ -233,6 +256,50 @@ INT8_PAIR = ("quantize_int8", "dequantize_int8")
 RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 32, 224, 1000
 RESNET_LR, RESNET_MOMENTUM = 0.05, 0.9
 RESNET_TIMED = 5
+# the port's copy of examples/deformable_rfcn/train.py: the example's own
+# run at its defaults (3 epochs x 6 batches, 3x64x64, batch 2), then
+# --bench at these shapes (the five kernels' calls of one bench step at each
+# held against their plain versions in the kernel rows); then at each shape
+# the first steps on the card against the CPU (the plain versions) from the
+# same weights, batch and anchor sampling: the first step's losses within
+# IMPERATIVE_RFCN_RTOL, its update of the parameters within "update" of the
+# CPU's over all of them and "update_param" of each parameter's own (fp32
+# sums in other orders, dconv_col_bwd's by atomics: ~1e-6 expected), and
+# the later steps' losses within "later" (their weights already one fp32
+# rounding apart).  A parameter whose update is under "floor" of the whole
+# (pstrans' bias: 3e-5 of it) is measured against that floor; the conv
+# biases before BatchNorm, whose gradient is zero but for rounding (at most
+# 4e-8 of the whole, and the card's rounding is not the CPU's), count only
+# in the whole.
+IMPERATIVE_RFCN_SHAPES = ((3, 64, 64), (3, 512, 512))
+IMPERATIVE_RFCN_ITERS = 10
+IMPERATIVE_RFCN_CPU_STEPS = {(3, 64, 64): 2, (3, 512, 512): 3}
+IMPERATIVE_RFCN_RTOL = 2e-4
+IMPERATIVE_RFCN_UPDATE_RTOL = {"update": 1e-4, "update_param": 1e-3, "floor": 1e-4,
+                               "later": 1e-2}
+IMPERATIVE_RFCN_ROUNDING_ONLY = ("backbone_down0_bias", "backbone_down1_bias",
+                                 "backbone_down2_bias")
+# ResNet-50 v1 through autograd.record / Trainer against make_train_step:
+# batch RESNET_BATCH at 224x224, these SGD settings, 3 steps from the same
+# weights on the same batches, under deterministic cuDNN, in fp32 (the gate
+# at the issue's settings) and in float64.  make_train_step takes Trainer's
+# weight decay as the gradient of (wd/2)·Σ‖p‖² added to its loss.  Per
+# dtype and step i: the losses within "loss"[i], and the weights within
+# "weights"[i] of make_train_step's update since the start.  Step 1 shows
+# the two update rules alone.  After it, at lr 0.1 and a rising loss, the
+# trajectory amplifies any difference: a float64 make_train_step started
+# one ulp up, run beside, is 9.1e-8, 2.6e-3 and 6.2e-2 of the update away
+# after steps 1-3, and in float64 the imperative loop must stay closer than
+# it at every step.  The later limits are 2.5x the readings of the first
+# runs (H100, 700 W; bit for bit the same in each run): fp32 losses 0, 3.95e-6,
+# 2.35e-3 apart and weights 8.9e-9, 4.06e-2, 7.91e-2; float64 losses 0,
+# 0, 2.44e-7 and weights 1.09e-17, 1.33e-8, 6.25e-4.
+IMPERATIVE_RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+IMPERATIVE_RESNET_STEPS = 3
+IMPERATIVE_RESNET_RTOL = {
+    "float32": {"loss": (1e-6, 1e-5, 6e-3), "weights": (1e-6, 0.1, 0.2)},
+    "float64": {"loss": (1e-12, 1e-10, 6e-7), "weights": (1e-14, 3.3e-8, 1.6e-3)},
+}
 # running statistics the small train phases compare (a res2 and a res5
 # BatchNorm); the batch-statistics phase's seed and RPN score weights' gain:
 # at these its CPU run's 201 best proposal scores of each image lie at least
@@ -747,15 +814,17 @@ def compare(name, got, ref):
     return err
 
 
-def phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev, bf16=False):
+def phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev, bf16=False,
+                  extra=None):
     """Each R-FCN kernel against its plain version on the calls of a real
     run: an inference forward for the forward kernels, and for the backward
     kernels the calls ``phase_train`` recorded in one of its batch-1 steps
     (NMS is compared on that step's call too, and timed on the serve call).
     With ``bf16``, the bf16 instances on the bf16 path's calls (``net`` the
     bf16 serve model, the backward calls from ``phase_train_bf16``; NMS has
-    its row already).  (The int8 pair's rows come from ``phase_int8``'s
-    calls.)"""
+    its row already).  ``extra`` maps a kernel to more calls it is held
+    against (the imperative R-FCN's bench steps), compared only.  (The int8
+    pair's rows come from ``phase_int8``'s calls.)"""
     H, W = net.image_shape
     gen = torch.Generator().manual_seed(SEED + 3)
     data, im_info = make_request(gen, [[H, W, 1.0]], net.image_shape, dev)
@@ -771,7 +840,8 @@ def phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev, bf16=Fal
         with torch.no_grad():  # the captured backward inputs carry a graph
             rows.append(kernel_row(name, kernels.KERNELS[name], captured[name],
                                    expect[name], launches, main,
-                                   extra_calls=train_nms if name == "nms_alive" else ()))
+                                   extra_calls=list(train_nms if name == "nms_alive" else ())
+                                   + list((extra or {}).get(name, ()))))
     return rows
 
 
@@ -3456,6 +3526,305 @@ def phase_small_predictor(dev):
         "tiers, card against CPU, max |card - CPU| %s" % json.dumps(worst))
 
 
+def imperative_rfcn_args(*argv):
+    from mxnet_tpu_torch.examples.deformable_rfcn import train as example
+
+    return example.parser().parse_args(list(argv))
+
+
+def imperative_rfcn_card_vs_cpu(dev, shape, steps):
+    """The example's first ``steps`` steps at ``shape`` on the CPU (the plain
+    versions) and on the card, in full fp32, from the same weights, batch and
+    anchor sampling -> [(CPU losses, CPU update), (card losses, card update)]:
+    each step's (loss, parts), and each parameter's change over the first
+    step (numpy)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.examples.deformable_rfcn import train as example
+
+    args = imperative_rfcn_args()
+    out, start = [], None
+    for ctx in (mx.cpu(), mx.gpu(dev.index)):
+        with ctx, mx.full_fp32():
+            mx.random.seed(SEED)
+            net, trainer = example.build(args.num_classes, args.lr, ctx)
+            batch = next(iter(example.synthetic_batches(
+                args.batch_size, shape, 1, args.num_classes, seed=SEED + 41, ctx=ctx)))
+            with autograd.pause():
+                net(*batch[:2])  # predict mode: completes the deferred shapes
+            params = net.collect_params()
+            if start is None:
+                start = {k: p.data().asnumpy() for k, p in params.items()}
+            else:
+                for k, p in params.items():
+                    p.set_data(torch.from_numpy(start[k]))
+            step = example.make_train_step(net, trainer, args.batch_size, args.num_classes,
+                                           anchor_rng=np.random.RandomState(SEED + 41))
+            losses = [step(*batch)]
+            update = {k: p.data().asnumpy() - start[k] for k, p in params.items()}
+            losses += [step(*batch) for _ in range(steps - 1)]
+            out.append((losses, update))
+        del net, trainer, step, batch, params
+    return out
+
+
+def check_imperative_rfcn_card_vs_cpu(dev, shape, steps):
+    """Hold the card's first steps at ``shape`` against the CPU's
+    (``IMPERATIVE_RFCN_RTOL``, ``IMPERATIVE_RFCN_UPDATE_RTOL``) -> the
+    readings."""
+    (ref_losses, ref_upd), (got_losses, got_upd) = imperative_rfcn_card_vs_cpu(dev, shape, steps)
+    tag = "imperative_rfcn %dx%d card vs CPU" % shape[1:]
+    (ref_loss, ref_parts), (got_loss, got_parts) = ref_losses[0], got_losses[0]
+    for what, a, b in [("loss", got_loss, ref_loss)] + [
+            ("part %d" % i, x, y) for i, (x, y) in enumerate(zip(got_parts, ref_parts))]:
+        if not math.isclose(a, b, rel_tol=IMPERATIVE_RFCN_RTOL, abs_tol=1e-6):
+            fail("%s: step 1 %s %.7f against %.7f" % (tag, what, a, b))
+    norm = lambda v: math.sqrt(float((v.astype(np.float64) ** 2).sum()))  # noqa: E731
+    whole = math.sqrt(sum(norm(r) ** 2 for r in ref_upd.values()))
+    floor = IMPERATIVE_RFCN_UPDATE_RTOL["floor"] * whole
+    per_param = {k: norm(got_upd[k] - r) / max(norm(r), floor) for k, r in ref_upd.items()
+                 if k not in IMPERATIVE_RFCN_ROUNDING_ONLY}
+    moved = sum(1 for k in per_param if norm(ref_upd[k]) >= floor)
+    total = math.sqrt(sum(norm(got_upd[k] - r) ** 2 for k, r in ref_upd.items())) / whole
+    worst = max(per_param, key=per_param.get)
+    if not (moved > 10 and total <= IMPERATIVE_RFCN_UPDATE_RTOL["update"]
+            and per_param[worst] <= IMPERATIVE_RFCN_UPDATE_RTOL["update_param"]):
+        fail("%s: the first step's update apart by %.3g of the CPU's over all %d "
+             "parameters (%d above the floor), %.3g at %s" % (
+                 tag, total, len(ref_upd), moved, per_param[worst], worst))
+    later = [(g[0], r[0]) for g, r in zip(got_losses[1:], ref_losses[1:])]
+    if not all(math.isclose(g, r, rel_tol=IMPERATIVE_RFCN_UPDATE_RTOL["later"])
+               for g, r in later):
+        fail("%s: later steps' losses %s (card, CPU)" % (tag, later))
+    say("%s: step 1 loss %.7f / %.7f, its update %.3g of the CPU's apart over %d "
+        "parameters (%d above the floor; worst %.3g at %s); losses of steps 1-%d card %s / CPU %s"
+        % (tag, got_loss, ref_loss, total, len(ref_upd), moved, per_param[worst], worst,
+           steps, ["%.6f" % g[0] for g in got_losses], ["%.6f" % r[0] for r in ref_losses]))
+    return dict(losses=[g[0] for g in got_losses], cpu_losses=[r[0] for r in ref_losses],
+                parts=got_parts, cpu_parts=ref_parts, update_rel_error=total,
+                worst_param=worst, worst_param_rel_error=per_param[worst])
+
+
+def detached(calls):
+    """Captured calls without their autograd graphs."""
+    d = lambda a: a.detach() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    return [(tuple(d(a) for a in args), {k: d(v) for k, v in kw.items()})
+            for args, kw in calls]
+
+
+def phase_imperative_rfcn(kernels, dev, card):
+    """The port's copy of examples/deformable_rfcn/train.py on the card,
+    through ``mx.nd``, ``autograd.record`` and ``gluon.Trainer``: the
+    example's own run (3 epochs x 6 batches, 3x64x64, batch 2; its loss must
+    fall), then ``--bench`` at 3x64x64 and 3x512x512, batch 2, 10 steps
+    each (ms a step, launches a step of each path kernel, every one > 0;
+    the five kernels' calls of one more step captured for the kernel rows),
+    then the first steps at each shape against the CPU.  Returns the counts
+    of the example's run, the results and the captured calls."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples.deformable_rfcn import train as example
+
+    gpu = mx.gpu(dev.index)
+    res, captured = {}, {n: [] for n in example.PATH_KERNELS}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with gpu:
+        first, last = example.train(imperative_rfcn_args(), gpu)
+    res["train"] = dict(first_epoch_loss=first, last_epoch_loss=last,
+                        seconds=time.perf_counter() - t0)
+    launches = counts(kernels)
+    idle = [n for n in example.PATH_KERNELS if not launches[n]]
+    if idle:
+        fail("imperative_rfcn: the example's run launched no %s (%s)" % (idle, launches))
+    for shape in IMPERATIVE_RFCN_SHAPES:
+        args = imperative_rfcn_args("--bench", "--bench-iters", str(IMPERATIVE_RFCN_ITERS),
+                                    "--data-shape", *map(str, shape))
+        with gpu:
+            step, batch = prepared = example.prepare_bench(args, gpu)
+            calls = capture_calls(kernels, example.PATH_KERNELS, lambda: step(*batch))
+            ms, per_step, losses = example.bench(args, gpu, prepared)
+        del prepared, step, batch
+        if not all(math.isfinite(v) for v in losses):
+            fail("imperative_rfcn bench %s: losses %s" % (shape, losses))
+        idle = [n for n in example.PATH_KERNELS if not per_step[n] > 0]
+        if idle:
+            fail("imperative_rfcn bench %s: no launch of %s a step" % (shape, idle))
+        for n, c in calls.items():
+            if len(c) != per_step[n]:
+                fail("imperative_rfcn bench %s: captured %d %s calls in a step, %s a step "
+                     "launched" % (shape, len(c), n, per_step[n]))
+            captured[n] += detached(c)
+        res["bench_%dx%d" % shape[1:]] = dict(ms_per_step=ms, launches_per_step=per_step,
+                                              losses=losses)
+        say("imperative_rfcn bench on %s: 3x%dx%d batch 2, %.2f ms a step, launches a "
+            "step %s; losses %s; captured calls %s" % (
+                card, shape[1], shape[2], ms, json.dumps(per_step),
+                ", ".join("%.4f" % v for v in losses),
+                {n: [[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+                     for args, _ in c] for n, c in calls.items()}))
+    for shape in IMPERATIVE_RFCN_SHAPES:
+        res["card_vs_cpu_%dx%d" % shape[1:]] = check_imperative_rfcn_card_vs_cpu(
+            dev, shape, IMPERATIVE_RFCN_CPU_STEPS[shape])
+    say("imperative_rfcn on %s: the example's loss %.4f -> %.4f over 3 epochs; launches %s"
+        % (card, first, last, json.dumps({n: launches[n] for n in example.PATH_KERNELS})))
+    return launches, res, captured
+
+
+def imperative_resnet_loop(net, trainer, loss_fn):
+    import mxnet_tpu_torch as mx
+
+    def step(x, y):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        return loss
+    return step
+
+
+class WeightDecayed(torch.nn.Module):
+    """``net`` whose forward also returns (wd/2)·Σ‖p‖² over its learnables:
+    ``make_train_step`` over it, with a loss that adds the term, takes the
+    wd·p gradient that the SGD optimizer's weight decay adds."""
+
+    def __init__(self, net, wd):
+        super().__init__()
+        self.net, self.wd = net, wd
+
+    def gluon_named_tensors(self):
+        return self.net.gluon_named_tensors()
+
+    def forward(self, x):
+        learn = [p for p in self.net.parameters() if p.requires_grad]
+        return self.net(x), 0.5 * self.wd * sum((p * p).sum() for p in learn)
+
+
+def imperative_resnet_run(dev, dtype, timed):
+    """ResNet-50 v1 3 steps through ``autograd.record`` and ``Trainer`` and
+    3 steps of ``make_train_step`` from the same weights on the same batches,
+    in ``dtype`` under deterministic cuDNN; beside them in fp32 a second
+    ``make_train_step`` run (which must repeat the first's bits) and the two
+    loops timed in turns, in float64 a ``make_train_step`` run started one
+    ulp up.  -> (losses, ms, the distance after each step of each other
+    run's weights from make_train_step's, over make_train_step's update
+    since the start)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.functional import make_train_step
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    sgd = IMPERATIVE_RESNET_SGD
+    twin = "make_train_step_twin" if timed else "make_train_step_one_ulp_up"
+    labels = ["imperative", "make_train_step", twin]
+    nets = [resnet50_v1(classes=RESNET_CLASSES, device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 51)).to(dtype)
+            for _ in labels]
+    imp, ref = nets[:2]
+    if not timed:
+        with torch.no_grad():
+            for p in nets[2].parameters():
+                if p.requires_grad:
+                    p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+    start = {k: t.detach().clone() for k, t in ref.gluon_named_tensors().items()}
+    trainer = mx.gluon.Trainer(imp.collect_params(), "sgd", dict(sgd))
+    steps = {"imperative": imperative_resnet_loop(imp, trainer, SoftmaxCrossEntropyLoss())}
+    states, ce = {}, {}
+    loss_block = SoftmaxCrossEntropyLoss()
+
+    def decayed_loss(out, y):
+        logits, decay = out
+        ce["loss"] = loss_block(logits, y)
+        return ce["loss"] + decay
+
+    for label, net in zip(labels[1:], nets[1:]):
+        steps[label], states[label], _ = make_train_step(
+            WeightDecayed(net, sgd["wd"]), decayed_loss, learning_rate=sgd["learning_rate"],
+            momentum=sgd["momentum"])
+    want = ref.gluon_named_tensors()
+
+    @torch.no_grad()
+    def apart(net):
+        got = net.gluon_named_tensors()
+        sq = lambda d: sum(float(v.double().pow(2).sum()) for v in d)  # noqa: E731
+        return math.sqrt(sq(got[k] - want[k] for k in want)
+                         / sq(want[k] - start[k] for k in want))
+
+    losses, times = {k: [] for k in steps}, {k: [] for k in steps}
+    distance = {labels[0]: [], labels[2]: []}
+    with mx.full_fp32(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                    deterministic=True):
+        for i in range(IMPERATIVE_RESNET_STEPS):
+            x, y = resnet_batch(RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES, SEED + 51 + i, dev)
+            x, y = x.to(dtype), y.to(dtype)
+            for label, step in steps.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if label == "imperative":
+                    loss = step(mx.nd.NDArray(x), mx.nd.NDArray(y)).mean().asscalar()
+                else:
+                    states[label], _ = step(states[label], x, y)
+                    loss = ce["loss"].detach().mean()
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+                losses[label].append(float(loss))
+            for label, net in ((labels[0], imp), (labels[2], nets[2])):
+                distance[label].append(apart(net))
+    del nets, imp, ref, states, steps, trainer
+    torch.cuda.empty_cache()
+    return losses, times, distance
+
+
+def phase_imperative_resnet(kernels, dev, card):
+    """ResNet-50 v1 (1000 classes, 224x224, batch 32) trained 3 steps
+    through ``autograd.record`` -> ``SoftmaxCrossEntropyLoss`` ->
+    ``backward`` -> ``Trainer("sgd", IMPERATIVE_RESNET_SGD).step(32)``
+    against 3 steps of ``make_train_step`` with the same SGD, in fp32 (timed
+    in turns) and in float64: the losses and the weights after every step
+    must agree (``IMPERATIVE_RESNET_RTOL``), and in float64 the weights
+    must stay closer to make_train_step's than those of make_train_step
+    started one ulp up.  The path reaches no ported kernel.  Returns the
+    counts and the results."""
+    kernels.reset_launches()
+    runs = {"float32": imperative_resnet_run(dev, torch.float32, timed=True),
+            "float64": imperative_resnet_run(dev, torch.float64, timed=False)}
+    launches = counts(kernels)
+    if any(launches.values()):
+        fail("the imperative resnet path launched %s" % launches)
+    res = {}
+    for dtype, (losses, times, distance) in runs.items():
+        tol = IMPERATIVE_RESNET_RTOL[dtype]
+        imp_l, ref_l = losses["imperative"], losses["make_train_step"]
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(imp_l, ref_l)]
+        errors = distance["imperative"]
+        (other, other_d), = ((k, v) for k, v in distance.items() if k != "imperative")
+        if not all(math.isfinite(v) for v in imp_l) or any(
+                e > t for e, t in zip(loss_err, tol["loss"])):
+            fail("imperative resnet %s: losses %s against make_train_step's %s, limits %s"
+                 % (dtype, imp_l, ref_l, tol["loss"]))
+        if any(e > t for e, t in zip(errors, tol["weights"])) or (
+                other == "make_train_step_twin" and any(other_d)) or (
+                other == "make_train_step_one_ulp_up" and any(
+                    e >= d for e, d in zip(errors, other_d))):
+            fail("imperative resnet %s: the weights differ from make_train_step's by %s "
+                 "of the update after each step, limits %s (%s: %s)"
+                 % (dtype, errors, tol["weights"], other, other_d))
+        res[dtype] = dict(losses=losses, weights_rel_error_of_update=errors,
+                          loss_rel_error=loss_err, **{other + "_rel_error_of_update": other_d})
+        say("imperative resnet50 on %s (batch %d, %s): losses %s / make_train_step %s "
+            "(apart %s); weights apart by %s of the update after each step (%s: %s)"
+            % (card, RESNET_BATCH, dtype, ", ".join("%.9f" % v for v in imp_l),
+               ", ".join("%.9f" % v for v in ref_l), ", ".join("%.3g" % v for v in loss_err),
+               ", ".join("%.3g" % v for v in errors), other,
+               ", ".join("%.3g" % v for v in other_d)))
+        if dtype == "float32":
+            res[dtype].update(step_ms=times,
+                              median_ms={k: statistics.median(v) for k, v in times.items()})
+            say("imperative resnet50 %s ms a step %s / make_train_step %s" % (
+                dtype, ", ".join("%.2f" % v for v in times["imperative"]),
+                ", ".join("%.2f" % v for v in times["make_train_step"])))
+    return launches, res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -3489,6 +3858,11 @@ def main():
     int8_launches, int8_captured, int8_expect = phase("int8", phase_int8, kernels, dev, name)
     resnet_launches = phase("resnet", phase_resnet_train, kernels, dev, name)
     phase("resnet_card_vs_cpu", phase_resnet_card_vs_cpu, dev)
+    imperative_rfcn_launches, imperative_rfcn, imperative_rfcn_calls = phase(
+        "imperative_rfcn", phase_imperative_rfcn, kernels, dev, name)
+    imperative_resnet_launches, imperative_resnet = phase(
+        "imperative_resnet", phase_imperative_resnet, kernels, dev, name)
+    say("imperative: %s" % json.dumps({"rfcn": imperative_rfcn, "resnet": imperative_resnet}))
     frcnn_net, frcnn_serve_launches, frcnn_serve = phase(
         "frcnn_serve", phase_frcnn_serve, kernels, dev, name)
     frcnn_train_launches, frcnn_bf16_launches, frcnn_nms, frcnn_train = phase(
@@ -3526,6 +3900,8 @@ def main():
     launches = {"serve": serve_launches, "train": train_launches,
                 "serve_bf16": serve_bf16_launches, "train_bf16": train_bf16_launches,
                 "int8": int8_launches, "resnet_train": resnet_launches,
+                "imperative_rfcn": imperative_rfcn_launches,
+                "imperative_resnet": imperative_resnet_launches,
                 "frcnn_serve": frcnn_serve_launches, "frcnn_train": frcnn_train_launches,
                 "frcnn_train_bf16": frcnn_bf16_launches,
                 "frcnn_serve_bf16": frcnn_serve_bf16_launches,
@@ -3537,7 +3913,8 @@ def main():
                 "map_rfcn_eval": map_rfcn_launches}
 
     def kernel_rows():
-        rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev)
+        rows = phase_kernels(kernels, net, launches, bwd_captured, train_nms, dev,
+                             extra=imperative_rfcn_calls)
         nms_row = next(r for r in rows if r["name"] == "nms_alive")
         nms_row.update(nms_at_train_size(kernels, frcnn_nms))
         nms_row.update(nms_at_ssd_sizes(kernels, ssd_nms))
@@ -3558,6 +3935,7 @@ def main():
 
     rows = phase("kernels", kernel_rows)
     del net, net_bf16, int8_captured, bwd_captured, bwd_captured_bf16, train_nms, frcnn_nms
+    del imperative_rfcn_calls
     del ssd_nms, rfcn_decode_nms, frcnn_decode_nms
     torch.cuda.empty_cache()
     phase("small_input", phase_small_input, dev)

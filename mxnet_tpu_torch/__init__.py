@@ -12,12 +12,33 @@ post-training quantization (``contrib.quantization``), the Gluon ResNet
 train step (``gluon.model_zoo.vision``, ``gluon.functional.make_train_step``),
 Faster R-CNN VGG16 (``gluon.model_zoo.detection.faster_rcnn_vgg16``,
 ``train_frcnn``), SSD (``gluon.model_zoo.ssd``, ``train_ssd``), the symbolic
-frontend and its training path (``symbol``, ``executor``, ``module``), and
+frontend and its training path (``symbol``, ``executor``, ``module``),
 deployment: ``predictor.Predictor`` over the graph passes
 (``graph_passes``), the graph analyzers (``analysis``) and the bf16 and int8
-precision tiers (``graph_passes.precision``), serving (``serving``), and the
-detection-quality gates (``quality``, ``metric.VOCMApMetric``).
+precision tiers (``graph_passes.precision``), serving (``serving``), the
+detection-quality gates (``quality``, ``metric.VOCMApMetric``), and the
+imperative frontend: ``nd`` (NDArray and the registry's operators),
+``autograd``, ``random``, ``Context`` (``cpu()``, ``gpu()``) and Gluon's
+``Parameter`` / ``Trainer``, used as ``import mxnet_tpu_torch as mx``.
 """
-from .context import full_fp32, resolve_device
+import importlib
 
-__all__ = ["full_fp32", "resolve_device"]
+from .context import (Context, cpu, current_context, full_fp32, gpu, num_gpus,
+                      resolve_device)
+
+__all__ = ["Context", "cpu", "current_context", "full_fp32", "gpu", "num_gpus",
+           "resolve_device", "nd", "ndarray", "autograd", "random", "gluon", "init",
+           "initializer", "optimizer", "symbol", "sym", "name", "attribute", "metric",
+           "lr_scheduler"]
+
+# submodules imported on first use: ``mx.nd``, ``mx.gluon``, ``mx.init``, ...
+_LAZY = {"nd": "ndarray", "sym": "symbol", "init": "initializer"}
+
+
+def __getattr__(name):
+    target = _LAZY.get(name, name)
+    if name in __all__ and not name.startswith("_"):
+        mod = importlib.import_module("." + target, __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

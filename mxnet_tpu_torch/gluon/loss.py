@@ -1,7 +1,9 @@
 """Losses (counterpart of ``mxnet_tpu/gluon/loss.py``; reference
 ``python/mxnet/gluon/loss.py``): the base ``Loss`` and softmax
 cross-entropy, the loss of the classification train step.  Each gives one
-loss per sample: the mean over every axis but ``batch_axis``."""
+loss per sample: the mean over every axis but ``batch_axis``.  Called on
+NDArrays (the imperative frontend) a loss takes and returns NDArrays, as
+every block does (``HybridBlock.__call__``)."""
 from __future__ import annotations
 
 import torch

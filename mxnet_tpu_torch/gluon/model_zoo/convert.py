@@ -29,23 +29,36 @@ def load_jax_params(net, params):
 
     Every name must map to exactly one tensor of ``net`` with the same shape,
     and every tensor must be given: a missing name, an extra name or a wrong
-    shape raises before anything is copied.
+    shape raises before anything is copied.  A tensor whose shape was
+    deferred (a layer without ``in_channels``, a ``params.get`` parameter
+    not initialized yet) is made from the given value, on the device that
+    ``initialize`` was given (else the CPU); its known dimensions must
+    match.
     """
+    rel = {p.name[len(net.prefix):]: p for p in net.collect_params().values()}
     targets = net.gluon_named_tensors()
+    for name, p in rel.items():
+        targets.setdefault(name, None)
     missing = sorted(set(targets) - set(params))
     extra = sorted(set(params) - set(targets))
     if missing or extra:
         raise KeyError("load_jax_params: names do not match (missing from "
                        "params: %s; not in the model: %s)" % (missing, extra))
     for name, value in params.items():
-        if tuple(np.shape(value)) != tuple(targets[name].shape):
+        t = targets[name]
+        want = tuple(t.shape) if t is not None else rel[name].shape
+        got = tuple(np.shape(value))
+        if want is not None and (len(got) != len(want) or any(
+                w and w != g for w, g in zip(want, got))):
             raise ValueError("load_jax_params: %s has shape %s, the model "
-                             "expects %s" % (name, tuple(np.shape(value)),
-                                             tuple(targets[name].shape)))
+                             "expects %s" % (name, got, want))
     with torch.no_grad():
         for name, value in params.items():
-            t = targets[name]
-            t.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+            value = torch.from_numpy(np.array(value, dtype=np.float32))
+            if name in rel:
+                rel[name].set_data(value)
+            else:
+                targets[name].copy_(value)
     return net
 
 

@@ -361,6 +361,7 @@ class DeformableRFCN(_RPNDetector):
                 w.copy_(torch.randn(w.shape, generator=generator) * std)
             if m.bias is not None:
                 m.bias.zero_()
+        self._mark_initialized()
 
     # -- pieces -----------------------------------------------------------
 
@@ -525,6 +526,7 @@ class FasterRCNN(_RPNDetector):
                 w.copy_(torch.randn(w.shape, generator=generator) * std)
                 if m.bias is not None:
                     m.bias.zero_()
+        self._mark_initialized()
 
     # -- pieces -----------------------------------------------------------
 

@@ -136,6 +136,7 @@ class VGGSSD(HybridBlock):
         init = initializer.Xavier(generator=generator)
         for name, t in sorted(self.gluon_named_tensors().items()):
             init(name, t)
+        self._mark_initialized()
 
     def _sources(self, x):
         x = self.conv3(self.conv2(self.conv1(x)))

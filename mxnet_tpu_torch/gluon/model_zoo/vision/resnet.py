@@ -179,6 +179,7 @@ class _ResNet(HybridBlock):
                 t.fill_(1.0)
             else:  # bias, beta, running_mean
                 t.zero_()
+        self._mark_initialized()
 
     def forward(self, x):
         return self.output(self.features(x))

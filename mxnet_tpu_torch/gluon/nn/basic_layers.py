@@ -1,14 +1,16 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``).
-Shapes are known at construction, so ``in_units`` / ``in_channels`` are
-required where Gluon defers them.  ``device`` None means CUDA, and raises
-without it (pass ``"cpu"`` to run on the CPU)."""
+``in_units`` / ``in_channels`` 0 defers the shapes to the first forward,
+as Gluon does; given, the tensors are made at once on ``device`` (None:
+the current context, which is CUDA unless ``with mx.cpu():``; without a
+card it raises)."""
 from __future__ import annotations
 
 import torch
 
-from ...context import resolve_device
+from ... import random as _random
+from ...context import as_device
 from ...ops import nn as ops_nn
-from ..block import HybridBlock, HybridSequential
+from ..block import HybridBlock, HybridSequential, imperative_active
 
 __all__ = ["BatchNorm", "Dense", "Dropout", "Flatten", "HybridSequential"]
 
@@ -22,21 +24,24 @@ class Dense(HybridBlock):
     initialises it."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 in_units=0, prefix=None, device=None):
+                 in_units=0, prefix=None, device=None, weight_initializer=None,
+                 bias_initializer="zeros"):
         super().__init__(prefix=prefix)
-        if not in_units:
-            raise ValueError("Dense: in_units is required (no deferred "
-                             "shapes in the port)")
-        device = resolve_device(device)
+        dev = as_device(device) if in_units else None
         self._kwargs = dict(num_hidden=units, no_bias=not use_bias,
                             flatten=flatten)
+        self._flatten_input = flatten
         self._act_type = activation
-        self.weight = torch.nn.Parameter(torch.empty(units, in_units, device=device))
-        self.bias = (torch.nn.Parameter(torch.zeros(units, device=device))
-                     if use_bias else None)
-        self.gluon_params = ("weight", "bias") if use_bias else ("weight",)
+        self._declare("weight", (units, in_units), dev, init=weight_initializer)
+        if use_bias:
+            self._declare("bias", (units,), dev, fill=0.0, init=bias_initializer)
+        else:
+            self.bias = None
 
     def forward(self, x):
+        if self.weight is None:
+            in_units = x[0].numel() if self._flatten_input else x.shape[-1]
+            self._complete(in_units, x.device)
         out = ops_nn.fully_connected(x, self.weight, self.bias, **self._kwargs)
         if self._act_type is not None:
             out = ops_nn.activation(out, act_type=self._act_type)
@@ -47,8 +52,10 @@ class Dropout(HybridBlock):
     """Dropout of rate ``rate`` (reference basic_layers.py:196): the
     identity in eval mode (every block is built in it); in training mode
     ``ops.nn.dropout`` with the caller's ``keep`` mask, or one drawn from
-    ``generator`` (a ``torch.Generator`` on the data's device).  With
-    neither, training raises: the global random state is never used."""
+    ``generator`` (a ``torch.Generator`` on the data's device); called on
+    NDArrays without either, from ``mxnet_tpu_torch.random``'s generator of
+    the data's device.  Otherwise training without either raises: PyTorch's
+    global random state is never used."""
 
     def __init__(self, rate, axes=(), generator=None, prefix=None):
         super().__init__(prefix=prefix)
@@ -57,8 +64,11 @@ class Dropout(HybridBlock):
         self.generator = generator
 
     def forward(self, x, keep=None):
+        gen = self.generator
+        if gen is None and keep is None and self.training and imperative_active():
+            gen = _random.generator(x.device)
         return ops_nn.dropout(x, p=self._rate, axes=self._axes, training=self.training,
-                              keep=keep, generator=self.generator)
+                              keep=keep, generator=gen)
 
 
 class Flatten(HybridBlock):
@@ -86,28 +96,29 @@ class BatchNorm(HybridBlock):
     ``torch.func.functional_call`` are the ones updated.  Otherwise it
     normalises with the running statistics and leaves them as they are."""
 
-    gluon_params = ("gamma", "beta", "running_mean", "running_var")
-
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, in_channels=0, prefix=None,
                  device=None):
         super().__init__(prefix=prefix)
-        if not in_channels:
-            raise ValueError("BatchNorm: in_channels is required (no deferred "
-                             "shapes in the port)")
-        device = resolve_device(device)
+        dev = as_device(device) if in_channels else None
+        self._axis = axis
         self._kwargs = dict(axis=axis, eps=epsilon, fix_gamma=not scale,
                             use_global_stats=use_global_stats)
         self._momentum = momentum
         self._use_global_stats = use_global_stats
-        self.gamma = torch.nn.Parameter(torch.ones(in_channels, device=device),
-                                        requires_grad=scale)
-        self.beta = torch.nn.Parameter(torch.zeros(in_channels, device=device),
-                                       requires_grad=center)
-        self.register_buffer("running_mean", torch.zeros(in_channels, device=device))
-        self.register_buffer("running_var", torch.ones(in_channels, device=device))
+        c = (in_channels,)
+        self._declare("gamma", c, dev, fill=1.0, init="ones",
+                      grad_req="write" if scale else "null")
+        self._declare("beta", c, dev, fill=0.0, init="zeros",
+                      grad_req="write" if center else "null")
+        self._declare("running_mean", c, dev, fill=0.0, init="zeros", grad_req="null",
+                      buffer=True)
+        self._declare("running_var", c, dev, fill=1.0, init="ones", grad_req="null",
+                      buffer=True)
 
     def forward(self, x):
+        if self.gamma is None:
+            self._complete(x.shape[self._axis], x.device)
         out, mean, var = ops_nn.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             training=self.training, output_mean_var=True, **self._kwargs)

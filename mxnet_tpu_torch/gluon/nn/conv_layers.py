@@ -1,11 +1,9 @@
 """Convolution and pooling layers (counterpart of
-``mxnet_tpu/gluon/nn/conv_layers.py``).  Shapes are known at construction,
-so ``in_channels`` is required where Gluon defers it."""
+``mxnet_tpu/gluon/nn/conv_layers.py``).  ``in_channels`` 0 defers the
+weight's shape to the first forward, as Gluon does."""
 from __future__ import annotations
 
-import torch
-
-from ...context import resolve_device
+from ...context import as_device
 from ...ops import nn as ops_nn
 from ...ops.nn import pair
 from ..block import HybridBlock
@@ -16,29 +14,33 @@ __all__ = ["Conv2D", "GlobalAvgPool2D", "MaxPool2D"]
 class Conv2D(HybridBlock):
     """2-D convolution, NCHW, weight (channels, in_channels, kh, kw)
     (reference conv_layers.py Conv2D).  ``activation`` is applied after the
-    bias, as Gluon's ``act`` child does.  ``device`` None means CUDA, and
-    raises without it (pass ``"cpu"`` to run on the CPU)."""
+    bias, as Gluon's ``act`` child does.
+
+    With ``in_channels`` the tensors are made at once on ``device`` (None:
+    the current context, which is CUDA unless ``with mx.cpu():``; without
+    a card it raises), the weight uninitialised and the bias 0.  Without
+    it they wait for ``initialize`` and the first forward."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), activation=None, use_bias=True,
-                 in_channels=0, prefix=None, device=None):
+                 in_channels=0, prefix=None, device=None, weight_initializer=None,
+                 bias_initializer="zeros"):
         super().__init__(prefix=prefix)
-        if not in_channels:
-            raise ValueError("Conv2D: in_channels is required (no deferred "
-                             "shapes in the port)")
-        device = resolve_device(device)
+        dev = as_device(device) if in_channels else None
         k = pair(kernel_size)
         self._kwargs = dict(kernel=k, stride=pair(strides), dilate=pair(dilation),
                             pad=pair(padding), num_filter=channels,
                             no_bias=not use_bias)
         self._act_type = activation
-        self.weight = torch.nn.Parameter(torch.empty(
-            (channels, in_channels) + k, device=device))
-        self.bias = (torch.nn.Parameter(torch.zeros(channels, device=device))
-                     if use_bias else None)
-        self.gluon_params = ("weight", "bias") if use_bias else ("weight",)
+        self._declare("weight", (channels, in_channels) + k, dev, init=weight_initializer)
+        if use_bias:
+            self._declare("bias", (channels,), dev, fill=0.0, init=bias_initializer)
+        else:
+            self.bias = None
 
     def forward(self, x):
+        if self.weight is None:
+            self._complete(x.shape[1], x.device)
         out = ops_nn.convolution(x, self.weight, self.bias, **self._kwargs)
         if self._act_type is not None:
             out = ops_nn.activation(out, act_type=self._act_type)

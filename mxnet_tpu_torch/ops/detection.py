@@ -1002,3 +1002,90 @@ def bipartite_matching(data, *, threshold, is_ascend=False, topk=-1):
         taken = (rn[None, :, None] == i[:, None, None]) | (cn[None, None, :] == j[:, None, None])
         s = torch.where(ok[:, None, None] & taken, math.inf, s)
     return rows.reshape(shape[:-1]), cols.reshape(*shape[:-2], M)
+
+
+# ---------------------------------------------------------------------------
+# The deformable R-FCN ops and ROIPooling as registered operators (the JAX
+# package's names), for the imperative frontend's ``nd.contrib``
+# ---------------------------------------------------------------------------
+
+
+def _defconv_inputs(attrs):
+    base = ["data", "offset", "weight"]
+    return base if attrs.get("no_bias") else base + ["bias"]
+
+
+def _defconv_params(attrs, shapes):
+    d = shapes["data"]
+    kh, kw = pair(attrs["kernel"])
+    return {"weight": (attrs["num_filter"], d[1], kh, kw), "bias": (attrs["num_filter"],)}
+
+
+@register("_contrib_DeformableConvolution", alias=["DeformableConvolution"],
+          inputs_fn=_defconv_inputs, infer_params=_defconv_params)
+def deformable_convolution_op(data, offset, weight, bias=None, *, kernel, num_filter,
+                              stride=(1, 1), dilate=(1, 1), pad=(0, 0), num_group=1,
+                              num_deformable_group=1, no_bias=False):
+    """``deformable_convolution`` under the reference op's attributes
+    (``num_group`` other than 1 is not ported)."""
+    if int(num_group) != 1:
+        raise NotImplementedError("DeformableConvolution: num_group > 1 is not ported")
+    return deformable_convolution(data, offset, weight, bias, kernel=kernel,
+                                  num_filter=num_filter, stride=stride, dilate=dilate,
+                                  pad=pad, num_deformable_group=num_deformable_group,
+                                  no_bias=no_bias)
+
+
+register("_contrib_DeformablePSROIPooling", alias=["DeformablePSROIPooling"])(
+    deformable_psroi_pooling)
+register("ROIPooling", alias=["_contrib_ROIPooling"])(roi_pooling)
+
+
+@register("_contrib_PSROIPooling", alias=["PSROIPooling"])
+def psroi_pooling(data, rois, *, spatial_scale, output_dim, pooled_size, group_size=0):
+    """Position-sensitive ROI average pooling (R-FCN; reference
+    psroi_pooling.cc:57; ``mxnet_tpu/ops/detection.py psroi_pooling``):
+    output channel c at bin (ph, pw) averages input channel
+    ``(c·group + gh)·group + gw`` over the bin's integer positions; roi
+    corners round to integers (half to even) and scale, extents floor at
+    0.1, an empty bin gives 0.  Plain PyTorch: two masked contractions per
+    roi, as the JAX op (no TPU kernel behind it)."""
+    PH = PW = int(pooled_size)
+    group = int(group_size) if group_size else PH
+    B, C, H, W = data.shape
+    OD = int(output_dim)
+    f32 = torch.float32
+    dev = data.device
+    rois = rois.to(f32)
+    batch_idx = rois[:, 0].to(torch.int64)
+    xs = torch.round(rois[:, 1]) * spatial_scale
+    ys = torch.round(rois[:, 2]) * spatial_scale
+    xe = (torch.round(rois[:, 3]) + 1.0) * spatial_scale
+    ye = (torch.round(rois[:, 4]) + 1.0) * spatial_scale
+    bs_h = torch.clamp(ye - ys, min=0.1) / PH
+    bs_w = torch.clamp(xe - xs, min=0.1) / PW
+    ph = torch.arange(PH, dtype=f32, device=dev)
+    pw = torch.arange(PW, dtype=f32, device=dev)
+
+    def bounds(p, bs, s, n):
+        lo = torch.clamp(torch.floor(p[None] * bs[:, None] + s[:, None]).to(torch.int64), 0, n)
+        hi = torch.clamp(torch.ceil((p[None] + 1) * bs[:, None] + s[:, None]).to(torch.int64), 0, n)
+        return lo, hi
+
+    hs, he = bounds(ph, bs_h, ys, H)
+    ws, we = bounds(pw, bs_w, xs, W)
+    gh = torch.clamp((torch.arange(PH, device=dev) * group) // PH, 0, group - 1)
+    gw = torch.clamp((torch.arange(PW, device=dev) * group) // PW, 0, group - 1)
+    cin = (torch.arange(OD, device=dev)[:, None, None] * group + gh[None, :, None]) * group \
+        + gw[None, None, :]
+    hh = torch.arange(H, device=dev)
+    ww = torch.arange(W, device=dev)
+    mh = ((hh[None, None] >= hs[..., None]) & (hh[None, None] < he[..., None])).to(data.dtype)
+    mw = ((ww[None, None] >= ws[..., None]) & (ww[None, None] < we[..., None])).to(data.dtype)
+    s_all = torch.einsum("rchw,rph,rqw->rcpq", data[batch_idx], mh, mw)
+    p_idx = torch.arange(PH, device=dev)[None, :, None]
+    q_idx = torch.arange(PW, device=dev)[None, None, :]
+    out = s_all[:, cin, p_idx, q_idx]  # (R, OD, PH, PW)
+    area = ((he - hs)[:, None, :, None] * (we - ws)[:, None, None, :]).to(f32)
+    return torch.where(area > 0, out.to(f32) / torch.clamp(area, min=1.0),
+                       torch.zeros((), dtype=f32, device=dev)).to(data.dtype)

@@ -9,17 +9,20 @@ its tensor inputs and whose keyword-only parameters are its attributes::
 The symbolic frontend (``mxnet_tpu_torch.symbol``) builds its ``sym.*``
 functions from these entries, reads the tensor-argument names for
 ``list_arguments``, and infers shapes by running the functions on ``meta``
-tensors.  Only the operators of the ported paths are registered: those of
-the ResNet symbol, the ``bench.py`` Module MLP, Dropout, int8
-post-training quantization, and the SSD and proposal detection ops.  An
-op's ``alias`` names (``MultiBoxPrior`` for ``_contrib_MultiBoxPrior``)
-reach the same entry.
+tensors; the imperative frontend (``mxnet_tpu_torch.nd``) builds its
+``nd.*`` functions from the same entries.  Registered: the operators of the
+ResNet symbol, the ``bench.py`` Module MLP, Dropout, int8 post-training
+quantization, the SSD, proposal and deformable detection ops, and the
+elementwise, reduce, shape, indexing, creation and random groups.  An op's
+``alias`` names (``MultiBoxPrior`` for ``_contrib_MultiBoxPrior``) reach
+the same entry.  An op whose tensor inputs are ``*args`` (``Concat``,
+``add_n``) is ``variadic``.
 """
 from __future__ import annotations
 
 import inspect
 
-__all__ = ["OpDef", "register", "get", "list_ops"]
+__all__ = ["OpDef", "register", "get", "exists", "list_ops", "defs"]
 
 _REGISTRY = {}
 
@@ -37,11 +40,13 @@ class OpDef:
     shapes)`` gives the shapes of parameter inputs from the known input
     shapes; ``aux_update(attrs, outputs, {aux name: tensor})`` gives the
     auxiliary states after a training forward from the op's outputs (the
-    reference mutates them inside the kernel; the executor applies this).
+    reference mutates them inside the kernel; the executor applies this);
+    ``num_outputs(attrs)`` the number of outputs of an op that returns a
+    tuple (``SliceChannel``), for the symbolic frontend.
     """
 
     def __init__(self, name, fn, aux=(), inputs_fn=None, infer_params=None,
-                 aux_update=None):
+                 aux_update=None, num_outputs=None):
         self.name = name
         self.fn = fn
         self.hint = name.lower().lstrip("_")
@@ -49,7 +54,9 @@ class OpDef:
         self.inputs_fn = inputs_fn
         self.infer_params = infer_params
         self.aux_update = aux_update
+        self.num_outputs = num_outputs
         params = inspect.signature(fn).parameters.values()
+        self.variadic = any(p.kind == inspect.Parameter.VAR_POSITIONAL for p in params)
         positional = [p for p in params if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
         self.arg_names = [p.name for p in positional]
         self.attr_names = [p.name for p in params if p.kind == inspect.Parameter.KEYWORD_ONLY]
@@ -62,13 +69,14 @@ class OpDef:
 
 
 def register(name, alias=(), aux=(), inputs_fn=None, infer_params=None,
-             aux_update=None):
+             aux_update=None, num_outputs=None):
     """Decorator: register ``fn`` as operator ``name``, also reached by the
     names in ``alias``.  The function itself is returned unchanged."""
 
     def _reg(fn):
         opdef = OpDef(name, fn, aux=aux, inputs_fn=inputs_fn,
-                      infer_params=infer_params, aux_update=aux_update)
+                      infer_params=infer_params, aux_update=aux_update,
+                      num_outputs=num_outputs)
         for key in (name,) + tuple(alias):
             if key in _REGISTRY:
                 raise ValueError("duplicate op registration: %s" % key)
@@ -85,9 +93,19 @@ def get(name):
         return _REGISTRY[name]
     except KeyError:
         raise KeyError("Operator %r is not registered in mxnet_tpu_torch "
-                       "(only the ops of the ported paths are)" % name) from None
+                       "(the registry groups not ported yet are ROADMAP A8.4)"
+                       % name) from None
+
+
+def exists(name):
+    return name in _REGISTRY
 
 
 def list_ops():
-    """Registered op names, sorted."""
+    """Registered op names, aliases included, sorted."""
     return sorted(_REGISTRY)
+
+
+def defs():
+    """One OpDef per canonical name."""
+    return list({id(op): op for op in _REGISTRY.values()}.values())

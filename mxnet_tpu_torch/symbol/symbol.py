@@ -26,6 +26,7 @@ import threading
 import torch
 
 from ..context import resolve_device
+from ..attribute import AttrScope
 from ..ops import registry as _registry
 
 __all__ = ["Symbol", "Variable", "var", "Group", "NameManager", "load", "load_json"]
@@ -341,6 +342,8 @@ def _sym_out_name(s):
 
 
 def _node_input_names(node):
+    if node.op.variadic:
+        return ["arg%d" % i for i in range(len(node.inputs))]
     if node.op.inputs_fn is not None:
         return node.op.inputs_fn(node.attrs)
     return node.op.arg_names[: len(node.inputs)]
@@ -352,6 +355,8 @@ def _num_outputs_of(opdef, attrs):
         return 3  # (values, min_range, max_range)
     if opdef.name == "BatchNorm" and attrs.get("output_mean_var"):
         return 3  # (out, mean, var)
+    if opdef.num_outputs is not None:
+        return opdef.num_outputs(attrs)
     return 1
 
 
@@ -382,7 +387,7 @@ def _make_sym_op_func(opdef, public_name):
 
     def sym_func(*args, **kwargs):
         name = kwargs.pop("name", None)
-        user_attrs = kwargs.pop("attr", None)
+        user_attrs = AttrScope.current().get(kwargs.pop("attr", None))
         named = dict(zip(opdef.arg_names, args))
         attrs = {}
         for k, v in kwargs.items():
@@ -390,6 +395,10 @@ def _make_sym_op_func(opdef, public_name):
                 named[k] = v
             elif k not in ("cudnn_tune", "cudnn_off", "workspace", "__layout__"):
                 attrs[k] = parse_attr(v)
+        if opdef.variadic:  # Concat, add_n: every positional is an input
+            name = NameManager.current().get(name, opdef.hint)
+            return Symbol(opdef, list(args), attrs, name, _num_outputs_of(opdef, attrs),
+                          user_attrs=user_attrs)
         if opdef.inputs_fn is not None:
             needed = opdef.inputs_fn(attrs)
         else:
@@ -410,7 +419,7 @@ def _make_sym_op_func(opdef, public_name):
 def Variable(name, attr=None):
     """A symbolic variable; ``attr`` its user attributes (``{"__lr_mult__":
     "0.1"}``, ``{"__init__": initializer.dumps()}``)."""
-    return Symbol(None, [], {}, name, user_attrs=attr)
+    return Symbol(None, [], {}, name, user_attrs=AttrScope.current().get(attr))
 
 
 var = Variable

@@ -76,8 +76,12 @@ def test_reshape_specials(target):
 
 
 def test_reshape_rejects_codes_not_ported():
-    with pytest.raises(NotImplementedError, match="-3"):
-        tmat.infer_reshape((4, 6, 5), (0, -3))
+    """Every MXNet code (-2, -3 and -4 too) is ported now and resolves as
+    the JAX function does; a code that MXNet does not have raises."""
+    for target in ((0, -3), (-4, 2, -1, 0, 0), (0, -2)):
+        assert tmat.infer_reshape((4, 6, 5), target) == jmat.infer_reshape((4, 6, 5), target)
+    with pytest.raises(ValueError, match="-5"):
+        tmat.infer_reshape((4, 6, 5), (0, -5))
 
 
 @pytest.mark.parametrize("size,dg,cin", [(7, 2, 8), (28, 1, 8)],

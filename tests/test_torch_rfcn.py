@@ -24,6 +24,7 @@ from mxnet_tpu_torch.gluon.model_zoo import (DeformableConv2D, DeformableRFCN,
                                              load_jax_params, rfcn_resnet101)
 from mxnet_tpu_torch.train_frcnn import TINY as TINY_FRCNN
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+from xdist_shared import shared
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(classes=3, image_shape=(64, 96), units=(1, 1, 1, 1), scales=(1, 2),
@@ -44,9 +45,9 @@ def _np(a):
     return a.asnumpy() if hasattr(a, "asnumpy") else a.numpy()
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """(jax net, torch net, inputs, jax stage outputs), built once."""
+def _jax_side():
+    """The JAX net's weights, the inputs, and the JAX net's stage outputs
+    and whole forward on them (numpy)."""
     mx.random.seed(0)
     jnet = JaxRFCN(batch_rois=16, rpn_batch=32, max_gts=8, **CFG)
     jnet.initialize()
@@ -62,7 +63,6 @@ def pair():
                 p.set_data(nd.array((rng.randn(*p.shape) * s).astype(np.float32)))
     params = {k[len(jnet.prefix):]: p.data().asnumpy()
               for k, p in jnet.collect_params().items()}
-    tnet = load_jax_params(DeformableRFCN(device="cpu", **CFG), params)
     x = rng.randn(2, 3, 64, 96).astype(np.float32)
     # the second image is smaller than the input: padded cells score -1
     info = np.array([[64, 96, 1.0], [48, 80, 1.0]], np.float32)
@@ -74,7 +74,18 @@ def pair():
         nd, nd.array(c5), nd.array(rois), rois_per_image=CFG["rpn_post_nms"]))
     ref = dict(c4=c4, c5=c5, rpn_cls=rpn_cls, rpn_bbox=rpn_bbox, rois=rois,
                cls_score=cls_score, bbox_pred=bbox_pred)
-    return jnet, tnet, params, x, info, ref
+    whole = [_np(a) for a in jnet(nd.array(x), nd.array(info))]
+    return whole, params, x, info, ref
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    """(the JAX whole forward's outputs, torch net, JAX weights, inputs, JAX
+    stage outputs); the JAX side computed once per test run
+    (``xdist_shared``)."""
+    whole, params, x, info, ref = shared(tmp_path_factory, "torch_rfcn_pair", _jax_side)
+    tnet = load_jax_params(DeformableRFCN(device="cpu", **CFG), params)
+    return whole, tnet, params, x, info, ref
 
 
 def _t(a):
@@ -123,8 +134,7 @@ def test_head_on_the_same_c5_and_rois(pair):
 
 
 def test_whole_forward_matches(pair):
-    jnet, tnet, _, x, info, _ = pair
-    ref = [_np(a) for a in jnet(nd.array(x), nd.array(info))]
+    ref, tnet, _, x, info, _ = pair
     got = [a.numpy() for a in tnet(_t(x), _t(info))]
     assert got[0].shape == (2 * 32, 5) and got[1].shape == (2 * 32, 4)
     assert got[2].shape == (2 * 32, 8)
@@ -270,7 +280,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 port / "train_frcnn.py", port / "gluon" / "model_zoo" / "detection.py",
                 port / "gluon" / "nn" / "basic_layers.py", port / "initializer.py",
                 port / "lr_scheduler.py", port / "optimizer.py", port / "metric.py",
-                port / "ndarray.py", port / "model.py", port / "callback.py",
+                port / "ndarray" / "__init__.py", port / "ndarray" / "ndarray.py",
+                port / "ndarray" / "utils.py", port / "model.py", port / "callback.py",
                 port / "module" / "__init__.py", port / "module" / "base_module.py",
                 port / "module" / "module.py", port / "train_ssd.py",
                 port / "gluon" / "model_zoo" / "ssd.py", port / "predictor.py",
@@ -285,7 +296,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     "model_registry", "policy", "router")),
                 *(port / "quality" / (m + ".py") for m in (
                     "__init__", "common", "gate_map", "eval_ssd_map", "eval_frcnn_map",
-                    "eval_rfcn_map"))):
+                    "eval_rfcn_map")),
+                port / "__init__.py", port / "context.py", port / "name.py",
+                port / "attribute.py", port / "autograd.py", port / "random.py",
+                *(port / "ops" / (m + ".py") for m in (
+                    "__init__", "matrix", "indexing", "init_ops", "random_ops", "misc_ops")),
+                *(port / "gluon" / (m + ".py") for m in (
+                    "__init__", "block", "parameter", "trainer")),
+                *(port / "examples" / "deformable_rfcn" / (m + ".py") for m in (
+                    "__init__", "deformable_rfcn", "rcnn_helpers", "train")),
+                port / "examples" / "__init__.py"):
         assert new in files
     for f in files:
         for mod in _imports(f):

@@ -34,6 +34,7 @@ from mxnet_tpu.gluon.model_zoo.detection import DeformableRFCN as JaxRFCN
 from mxnet_tpu.test_utils import load_module_by_path
 from mxnet_tpu_torch import train_fused
 from mxnet_tpu_torch.gluon.model_zoo import DeformableRFCN, load_jax_params
+from xdist_shared import shared
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(classes=3, image_shape=(64, 96), units=(1, 1, 1, 1), scales=(1, 2),
@@ -70,8 +71,7 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.fixture(scope="module")
-def run():
+def _run():
     """STEPS steps of each side with the same noise: the JAX step under jit,
     and the port's step on the port's model started before each step from
     the JAX state (weights, momentum, running statistics).  Per step: the
@@ -147,6 +147,12 @@ def run():
     fixed = {n: named[n].detach().numpy().copy() for n in learn
              if n.startswith(("conv1_", "batchnorm0_", "conv2d0_", "res2_"))}
     return dict(params=params, steps=out, fixed=fixed)
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """``_run()``, computed once per test run (``xdist_shared``)."""
+    return shared(tmp_path_factory, "torch_rfcn_bn_run", _run)
 
 
 @pytest.mark.parametrize("step", range(STEPS))

@@ -30,6 +30,7 @@ from mxnet_tpu.test_utils import load_module_by_path
 from mxnet_tpu_torch import train_fused
 from mxnet_tpu_torch.gluon.model_zoo import DeformableRFCN, load_jax_params
 from mxnet_tpu_torch.ops import rcnn_targets as ttargets
+from xdist_shared import shared
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(classes=3, image_shape=(64, 96), units=(1, 1, 1, 1), scales=(1, 2),
@@ -59,8 +60,7 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.fixture(scope="module")
-def run():
+def _run():
     """Both sides built once: the JAX step run STEPS times under jit and the
     port's step STEPS times, each on its own weights, from the same start
     and with the same noise; plus the 11 training outputs of both at the
@@ -126,6 +126,12 @@ def run():
     return dict(params=params, jout=jout, tout=tout, jparts=jparts,
                 tparts=tparts, jfinal=jfinal, jmom=jmom, tfinal=tfinal,
                 tmom=tmom, aux=[n[len(jnet.prefix):] for n in aux_names])
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """``_run()``, computed once per test run (``xdist_shared``)."""
+    return shared(tmp_path_factory, "torch_train_run", _run)
 
 
 def _targets_inputs(seed):
