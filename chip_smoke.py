@@ -105,6 +105,18 @@ Phases, in order; any failure exits non-zero:
    decay alone with a zero gradient; ms a step, img/s, peak memory and one
    profiled step.  One step of each path runs under
    ``set_sync_debug_mode("error")``, and neither launches a ported kernel;
+8g. lstm_bucketing: the LSTM bucketing language model
+   (``mxnet_tpu_torch/examples/rnn/lstm_bucketing.py``) at the PTB width of
+   the reference's example (2 LSTM layers x 200, embed 200, batch 32,
+   buckets 10-60, vocabulary 10,000, Adam lr 0.01 wd 1e-5) on the example's
+   synthetic corpus cut into 5-60 token sentences: each bucket's first
+   batch on the card against the CPU from the same weights (loss and the
+   whole update within rtol 1e-5), then one epoch of
+   ``BucketingModule.fit`` (Perplexity, Speedometer) with each stack: the
+   perplexity falls, median ms a batch of each bucket, kernels a batch and
+   peak memory; no ported kernel launched; last, the FusedRNNCell stack
+   (the ``RNN`` op) against its ``unfuse()`` on the card (1e-5), on the
+   cell stack's weights after its epoch;
 8c. ssd: the SSD path of BASELINE config 5 (``examples/ssd/train_fused.py``,
    VGG16-reduced, 20 classes, seeded Xavier weights, synthetic VOC images).
    ``ssd_serve``: the score step (forward, fp32 softmax, MultiBoxDetection
@@ -335,6 +347,18 @@ CIFAR = dict(num_classes=10, num_layers=110, image_shape="3,28,28")
 CIFAR_BATCH, CIFAR_BATCHES, CIFAR_SCORE_BATCHES = 128, 8, 2
 CIFAR_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
 CIFAR_EPOCH_UPDATES, CIFAR_LR_STEP_EPOCHS, CIFAR_LR_FACTOR = 50000 // 128, (200, 250), 0.1
+# the LSTM bucketing LM (mxnet_tpu_torch/examples/rnn/lstm_bucketing.py) at the
+# PTB width of the reference's example/rnn/bucketing: 2 LSTM layers x 200
+# hidden, embed 200, batch 32, buckets 10..60, a vocabulary of 10,000, Adam
+# at lr 0.01 and wd 1e-5, Xavier(in, 2.34) weights.  The example's
+# synthetic Zipf / bigram corpus (synthetic_corpus(n, vocab_size=10000))
+# gives sentences of 4-23 tokens; its token stream is cut into sentences of
+# 5-60 tokens (uniform lengths) so that every bucket fills: one epoch of
+# ~60 batches, each bucket at least 6
+LM = dict(layers=2, hidden=200, embed=200, vocab=10000, batch=32,
+          buckets=(10, 20, 30, 40, 50, 60), lr=0.01, wd=1e-5, corpus=4700)
+LM_RTOL = 1e-5          # card against CPU: loss and update; fused against unfused
+LM_MIN_TIMED = 5        # batches timed in each bucket, its first (the bind) apart
 # BASELINE config 5 (examples/ssd/train_fused.py run_bench): the VGG16-reduced
 # SSD, 20 VOC classes, seeded Xavier weights; the train step at batch 8
 # (SSD300, 8,732 anchors) and 4 (SSD512, 24,564), momentum SGD 0.9 at lr
@@ -2696,6 +2720,264 @@ def phase_module_cifar(kernels, dev, card):
     return launches, res
 
 
+def lm_sentences():
+    """The example's synthetic corpus cut into sentences of 5-60 tokens: see
+    LM."""
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing as ex
+
+    sents, _ = ex.synthetic_corpus(LM["corpus"], vocab_size=LM["vocab"], seed=SEED)
+    stream = [w for sent in sents for w in sent]
+    rng = np.random.RandomState(SEED + 61)
+    out, i = [], 0
+    while i < len(stream):
+        n = rng.randint(5, 61)
+        out.append(stream[i:i + n])
+        i += n
+    return out
+
+
+def lm_iter(sents):
+    """``BucketSentenceIter`` over ``sents``, its shuffles seeded."""
+    import random
+
+    from mxnet_tpu_torch import rnn
+
+    np.random.seed(SEED + 62)
+    random.seed(SEED + 62)
+    return rnn.BucketSentenceIter(sents, LM["batch"], buckets=list(LM["buckets"]),
+                                  invalid_label=0)
+
+
+def lm_init():
+    from mxnet_tpu_torch.initializer import Xavier
+
+    return Xavier(factor_type="in", magnitude=2.34,
+                  generator=torch.Generator().manual_seed(SEED + 63))
+
+
+def lm_module(dev, fused=False, arg_params=None, ready=True):
+    """The example's BucketingModule on ``dev`` -> (module, its cell stack);
+    with ``ready`` bound to the largest bucket, its weights
+    ``Xavier(in, 2.34)`` from a seeded generator (or ``arg_params``) and
+    Adam's optimizer initialised, as ``fit`` makes them."""
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing as ex
+    from mxnet_tpu_torch.module import BucketingModule
+
+    stack = ex.lstm_stack(LM["layers"], LM["hidden"], fused=fused)
+    mod = BucketingModule(ex.make_sym_gen(stack, LM["vocab"], LM["embed"], LM["hidden"]),
+                          default_bucket_key=max(LM["buckets"]), device=dev)
+    if ready:
+        shape = (LM["batch"], max(LM["buckets"]))
+        mod.bind([("data", shape)], [("softmax_label", shape)])
+        mod.init_params(initializer=lm_init(), arg_params=arg_params,
+                        allow_missing=arg_params is None)
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": LM["lr"], "wd": LM["wd"]})
+    return mod, stack
+
+
+def lm_batch(it, key, dev=None):
+    """The first batch of bucket ``key`` in ``it``'s (shuffled) rows, its
+    labels the next tokens."""
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+
+    rows = it.data[it.buckets.index(key)][:LM["batch"]]
+    labels = np.concatenate([rows[:, 1:], np.zeros((rows.shape[0], 1), rows.dtype)], axis=1)
+    data, label = (torch.from_numpy(np.ascontiguousarray(a)).to(dev or "cpu")
+                   for a in (rows, labels))
+    return DataBatch([data], [label], bucket_key=key,
+                     provide_data=[DataDesc("data", rows.shape)],
+                     provide_label=[DataDesc("softmax_label", labels.shape)])
+
+
+def lm_loss(mod, batch):
+    """The mean cross-entropy of the softmax over every position (padding
+    included, as the loss's gradient), in float64 on the host."""
+    p = mod.get_outputs()[0].double().cpu()
+    label = batch.label[0].reshape(-1).long().cpu()
+    return float(-torch.log(p[torch.arange(label.numel()), label]).mean())
+
+
+def lm_params(mod):
+    return {k: v.detach().double().cpu() for k, v in mod.get_params()[0].items()}
+
+
+def lm_card_vs_cpu(it, dev):
+    """Each bucket's first batch, in turn, through the card's and the CPU's
+    cell stack from the same weights: the losses within ``LM_RTOL`` and
+    the update of all parameters as one vector within ``LM_RTOL`` relative
+    (per bucket).  -> [(bucket, loss rel. error, update rel. error)]."""
+    card, _ = lm_module(dev)
+    cpu, _ = lm_module("cpu", arg_params={k: v.cpu() for k, v in card.get_params()[0].items()})
+    out = []
+    for key in LM["buckets"]:
+        before = lm_params(cpu)
+        mods = []
+        for mod, d in ((card, dev), (cpu, None)):
+            batch = lm_batch(it, key, d)
+            mod.forward_backward(batch)
+            mod.update()
+            mods.append((lm_loss(mod, batch), lm_params(mod)))
+        (l_card, p_card), (l_cpu, p_cpu) = mods
+        d_card = torch.cat([(p_card[k] - before[k]).flatten() for k in sorted(before)])
+        d_cpu = torch.cat([(p_cpu[k] - before[k]).flatten() for k in sorted(before)])
+        loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+        upd_err = float((d_card - d_cpu).norm() / d_cpu.norm())
+        if not (loss_err <= LM_RTOL and upd_err <= LM_RTOL):
+            fail("lstm bucketing, bucket %d: card against CPU: loss %.8f vs %.8f (rel %.2e), "
+                 "update rel %.2e (limit %g)" % (key, l_card, l_cpu, loss_err, upd_err, LM_RTOL))
+        out.append((key, loss_err, upd_err))
+        # the next bucket starts from the CPU's weights on both devices
+        with torch.no_grad():
+            for k, v in card.get_params()[0].items():
+                v.copy_(p_cpu[k].float().to(dev))
+    return out
+
+
+def lm_packed(mod, dev):
+    """``mod``'s (a cell stack's module) weights with the cells' packed by
+    the FusedRNNCell's ``pack_weights`` into its ``parameters`` vector."""
+    fused_cell = lm_module(dev, fused=True, ready=False)[1]
+    return fused_cell.pack_weights({k: v.cpu() for k, v in mod.get_params()[0].items()})
+
+
+def lm_fused_vs_cells(it, dev, cells):
+    """The FusedRNNCell stack (the ``RNN`` op) on the weights of ``cells``,
+    the cell stack's module after its ``fit`` epoch (so that every bias
+    differs by layer and gate), packed by ``pack_weights``: the same
+    probabilities on each bucket's first batch within ``LM_RTOL`` (relative
+    L2).  -> [(bucket, error)]."""
+    fused, _ = lm_module(dev, fused=True, arg_params=lm_packed(cells, dev))
+    out = []
+    for key in LM["buckets"]:
+        probs = []
+        for mod in (cells, fused):
+            mod.forward(lm_batch(it, key, dev), is_train=False)
+            probs.append(mod.get_outputs()[0].double())
+        err = float((probs[1] - probs[0]).norm() / probs[0].norm())
+        if not err <= LM_RTOL:
+            fail("lstm bucketing, bucket %d: FusedRNNCell against its unfuse(): rel %.2e"
+                 % (key, err))
+        out.append((key, err))
+    return out
+
+
+def lm_fit(it, dev, fused, arg_params=None):
+    """One epoch of ``BucketingModule.fit`` (Perplexity ignoring the padding,
+    a Speedometer) from ``lm_init``'s weights or ``arg_params`` (the fused
+    stack's packed vector has no initializer of its own, as in the JAX
+    package) -> (each batch's (bucket, ms, perplexity), peak GiB, seconds,
+    the module)."""
+    from mxnet_tpu_torch.callback import Speedometer
+    from mxnet_tpu_torch.metric import Perplexity
+
+    mod, _ = lm_module(dev, fused=fused, ready=False)
+    metric = Perplexity(0)
+    rows, state = [], {"mark": None, "sum": 0.0, "n": 0}
+
+    def on_batch(param):  # the metric's read has synchronised the batch
+        now = time.perf_counter()
+        nll = (metric.sum_metric - state["sum"]) / (metric.num_inst - state["n"])
+        state.update(sum=metric.sum_metric, n=metric.num_inst)
+        rows.append((param.locals["data_batch"].bucket_key, (now - state["mark"]) * 1e3,
+                     math.exp(nll)))
+        state["mark"] = now
+
+    it.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = state["mark"] = time.perf_counter()
+    mod.fit(it, eval_metric=metric, optimizer="adam",
+            optimizer_params={"learning_rate": LM["lr"], "wd": LM["wd"]},
+            initializer=lm_init(), arg_params=arg_params,
+            batch_end_callback=[on_batch, Speedometer(LM["batch"], 20, auto_reset=False)],
+            num_epoch=1)
+    return rows, torch.cuda.max_memory_allocated() / 2 ** 30, time.perf_counter() - t0, mod
+
+
+def lm_report(rows):
+    """-> {bucket: median ms of its batches after its first} and the
+    perplexity's first and last 10 batches' means; fails unless every
+    bucket has ``LM_MIN_TIMED`` such batches and the perplexity fell."""
+    seen, per = set(), {}
+    for key, ms, _ in rows:
+        if key in seen:
+            per.setdefault(key, []).append(ms)
+        seen.add(key)
+    short = {k: len(per.get(k, [])) for k in LM["buckets"] if len(per.get(k, [])) < LM_MIN_TIMED}
+    if short:
+        fail("lstm bucketing: too few timed batches in buckets %s" % short)
+    ppl = [p for _, _, p in rows]
+    first, last = statistics.mean(ppl[:10]), statistics.mean(ppl[-10:])
+    if not (all(math.isfinite(p) for p in ppl) and first > last):
+        fail("lstm bucketing: perplexity did not fall: first 10 %.2f, last 10 %.2f"
+             % (first, last))
+    return {k: statistics.median(per[k]) for k in LM["buckets"]}, first, last
+
+
+def phase_lstm_bucketing(kernels, dev, card):
+    """The LSTM bucketing language model on the card: see LM.  Each bucket's
+    first batch on the card against the CPU (loss and update, ``LM_RTOL``);
+    one epoch of ``BucketingModule.fit`` with each stack (the example's
+    unrolled LSTMCell stack and a FusedRNNCell over the ``RNN`` op, both
+    from the same initial weights): the perplexity must fall (the mean of
+    the first 10 batches above that of the last 10); median ms a batch of
+    each bucket, device kernels a batch at the largest bucket, peak memory;
+    no ported kernel launched; then the FusedRNNCell stack against its
+    ``unfuse()`` on the card, on the cell stack's trained weights.  ->
+    (launch counts, report)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    say("lstm bucketing card: %s" % smi.stdout.strip().splitlines()[0])
+    logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
+    it = lm_iter(lm_sentences())
+    sizes = {k: len(m) // LM["batch"] for k, m in zip(it.buckets, it.data)}
+    say("lstm bucketing: %d layers x %d hidden, embed %d, vocabulary %d, batch %d, batches "
+        "an epoch by bucket %s" % (LM["layers"], LM["hidden"], LM["embed"], LM["vocab"],
+                                    LM["batch"], sizes))
+    t0 = time.perf_counter()
+    card_cpu = lm_card_vs_cpu(it, dev)
+    say("lstm bucketing card vs CPU (bucket, loss rel, update rel) in %.1f s: %s" % (
+        time.perf_counter() - t0, card_cpu))
+    packed = lm_packed(lm_module(dev)[0], dev)
+    res = {"card_vs_cpu": card_cpu}
+    trained = None
+    kernels.reset_launches()
+    for name, fused in (("cells", False), ("fused", True)):
+        rows, peak, seconds, mod = lm_fit(it, dev, fused, packed if fused else None)
+        medians, first, last = lm_report(rows)
+        big = lm_batch(it, max(LM["buckets"]), dev)
+
+        def step(mod=mod, big=big):
+            mod.forward_backward(big)
+            mod.update()
+
+        prof = device_profile(step, reps=1, top=6)
+        res[name] = dict(batches=len(rows), epoch_s=seconds, median_ms=medians,
+                         perplexity_first10=first, perplexity_last10=last, peak_gib=peak,
+                         profile=prof)
+        say("lstm bucketing (%s stack, BucketingModule.fit) on %s: %d batches in %.1f s, "
+            "median ms a batch by bucket %s, perplexity %.1f (first 10) -> %.1f (last 10), "
+            "peak memory %.2f GiB; at bucket %d: %s kernels a batch, device busy %s ms, "
+            "idle share %s" % (
+                name, card, len(rows), seconds,
+                json.dumps({k: round(v, 2) for k, v in medians.items()}), first, last, peak,
+                max(LM["buckets"]), prof.get("kernels_per_call"), prof.get("device_busy_ms"),
+                prof.get("idle_share")))
+        say("lstm bucketing %s device groups: %s" % (name, json.dumps(prof)))
+        if not fused:
+            trained = mod
+        del mod
+    launches = counts(kernels)
+    if any(launches.values()):
+        fail("the lstm bucketing path launched %s" % launches)
+    say("lstm bucketing: ported kernel launches %s" % launches)
+    res["fused_vs_unfused"] = lm_fused_vs_cells(it, dev, trained)
+    say("lstm bucketing FusedRNNCell vs its unfuse() on the card, on the cell stack's "
+        "weights after its epoch (bucket, rel): %s" % res["fused_vs_unfused"])
+    return launches, res
+
+
 def phase_small_module(dev):
     """One Module step of the CIFAR ResNet-8 (batch 4, 3x28x28) on the card
     and on the CPU from the same carried-in weights (Xavier from a seeded
@@ -3880,6 +4162,8 @@ def main():
     module_cifar_launches, module_cifar_res = phase("module_cifar", phase_module_cifar,
                                                     kernels, dev, name)
     say("module: %s" % json.dumps({"mlp": module_mlp_res, "cifar": module_cifar_res}))
+    lstm_launches, lstm_res = phase("lstm_bucketing", phase_lstm_bucketing, kernels, dev, name)
+    say("lstm_bucketing: %s" % json.dumps(lstm_res))
     ssd_serve_launches, ssd_nms, ssd_serve = phase("ssd_serve", phase_ssd_serve, kernels, dev,
                                                    name)
     ssd_train_launches, ssd_train = phase("ssd_train", phase_ssd_train, kernels, dev, name)
@@ -3906,6 +4190,7 @@ def main():
                 "frcnn_train_bf16": frcnn_bf16_launches,
                 "frcnn_serve_bf16": frcnn_serve_bf16_launches,
                 "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches,
+                "lstm_bucketing": lstm_launches,
                 **ssd_serve_launches, **ssd_train_launches,
                 "predictor_resnet": predictor_resnet_launches,
                 "serve_engine": serve_engine_launches,

@@ -19,7 +19,10 @@ precision tiers (``graph_passes.precision``), serving (``serving``), the
 detection-quality gates (``quality``, ``metric.VOCMApMetric``), and the
 imperative frontend: ``nd`` (NDArray and the registry's operators),
 ``autograd``, ``random``, ``Context`` (``cpu()``, ``gpu()``) and Gluon's
-``Parameter`` / ``Trainer``, used as ``import mxnet_tpu_torch as mx``.
+``Parameter`` / ``Trainer``, used as ``import mxnet_tpu_torch as mx``; and
+the LSTM bucketing language model: the fused ``RNN`` op, ``rnn`` (the
+cells, ``BucketSentenceIter``), ``mod.BucketingModule``, Adam and
+``metric.Perplexity``.
 """
 import importlib
 
@@ -29,10 +32,10 @@ from .context import (Context, cpu, current_context, full_fp32, gpu, num_gpus,
 __all__ = ["Context", "cpu", "current_context", "full_fp32", "gpu", "num_gpus",
            "resolve_device", "nd", "ndarray", "autograd", "random", "gluon", "init",
            "initializer", "optimizer", "symbol", "sym", "name", "attribute", "metric",
-           "lr_scheduler"]
+           "lr_scheduler", "module", "mod", "rnn", "io", "callback", "model"]
 
 # submodules imported on first use: ``mx.nd``, ``mx.gluon``, ``mx.init``, ...
-_LAZY = {"nd": "ndarray", "sym": "symbol", "init": "initializer"}
+_LAZY = {"nd": "ndarray", "sym": "symbol", "init": "initializer", "mod": "module"}
 
 
 def __getattr__(name):

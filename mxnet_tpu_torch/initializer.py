@@ -12,8 +12,9 @@ generator gives the same values on the CPU and the card.  The global random
 state is never used.
 
 Ported: ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal``, ``Xavier``,
-``MSRAPrelu``.  The others (``Orthogonal``, ``Bilinear``, ``LSTMBias``,
-``Mixed``, ``Load``, ``FusedRNN``) are ROADMAP A11.
+``MSRAPrelu`` and ``LSTMBias`` (the LSTM cells' i2h bias).  The others
+(``Orthogonal``, ``Bilinear``, ``Mixed``, ``Load``, ``FusedRNN``) are
+ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import math
 import torch
 
 __all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "MSRAPrelu", "create", "register"]
+           "Xavier", "MSRAPrelu", "LSTMBias", "create", "register"]
 
 _INIT_REGISTRY = {}
 _ALIASES = {"zeros": "zero", "ones": "one"}
@@ -201,3 +202,20 @@ class MSRAPrelu(Xavier):
     def __init__(self, factor_type="avg", slope=0.25, generator=None):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2), generator)
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM cell's i2h bias (reference initializer.py LSTMBias): 0 but
+    for the forget gate's quarter (the second of i, f, c, o), which is
+    ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0, generator=None):
+        super().__init__(generator, forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        out = torch.zeros(arr.shape, dtype=torch.float32)
+        num_hidden = arr.shape[0] // 4
+        out[num_hidden:2 * num_hidden] = self.forget_bias
+        self._fill(arr, out)

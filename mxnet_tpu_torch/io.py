@@ -15,22 +15,27 @@ __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
 
 
 class DataDesc(collections.namedtuple("DataDesc", ["name", "shape"])):
-    """A named input shape, with its dtype (reference io.py DataDesc)."""
+    """A named input shape, with its dtype and layout (reference io.py
+    DataDesc)."""
 
-    def __new__(cls, name, shape, dtype=torch.float32):
+    def __new__(cls, name, shape, dtype=torch.float32, layout="NCHW"):
         ret = super().__new__(cls, name, tuple(shape))
         ret.dtype = dtype
+        ret.layout = layout
         return ret
 
 
 class DataBatch:
-    """One batch: a list of data tensors, a list of label tensors and the
-    number of padding samples at its end (reference io.py DataBatch)."""
+    """One batch: a list of data tensors, a list of label tensors, the
+    number of padding samples at its end and, from a bucketing iterator,
+    its ``bucket_key`` (reference io.py DataBatch)."""
 
-    def __init__(self, data, label=None, pad=0, provide_data=None, provide_label=None):
+    def __init__(self, data, label=None, pad=0, bucket_key=None, provide_data=None,
+                 provide_label=None):
         self.data = data if isinstance(data, (list, tuple)) else [data]
         self.label = label if label is None or isinstance(label, (list, tuple)) else [label]
         self.pad = pad
+        self.bucket_key = bucket_key
         self.provide_data = provide_data
         self.provide_label = provide_label
 

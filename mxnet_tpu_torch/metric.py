@@ -1,19 +1,21 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``; reference
 python/mxnet/metric.py): ``EvalMetric``, ``Accuracy``, ``TopKAccuracy``,
-``CrossEntropy``, ``CompositeEvalMetric`` and ``create``, what
-``Module.fit`` and ``Module.score`` use, and the detection gates'
+``CrossEntropy``, ``Perplexity``, ``CompositeEvalMetric`` and ``create``,
+what ``Module.fit`` and ``Module.score`` use, and the detection gates'
 ``VOCMApMetric`` (``examples/ssd/metric.py``).  An update reads its labels
 and predictions to the host (a synchronisation) and sums in numpy, as the
 JAX package's metrics do.  The other metrics are ROADMAP A11.
 """
 from __future__ import annotations
 
+import math
+
 import numpy
 
 import torch
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "VOCMApMetric", "create", "register"]
+           "CrossEntropy", "Perplexity", "VOCMApMetric", "create", "register"]
 
 _METRIC_REGISTRY = {}
 
@@ -174,6 +176,46 @@ class CrossEntropy(EvalMetric):
             self.num_inst += label.shape[0]
 
 
+class Perplexity(EvalMetric):
+    """exp(mean negative log-likelihood) of the labels (reference metric.py
+    Perplexity); labels equal to ``ignore_label`` count neither in the sum
+    nor in the number of instances."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity", output_names=None,
+                 label_names=None):
+        super().__init__(name)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        loss = 0.0
+        num = 0
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label = _as_np(label).astype(numpy.int32).flatten()
+            rows = numpy.arange(label.shape[0])
+            if isinstance(pred, torch.Tensor):
+                # pick on the device: only the labels' probabilities cross
+                pred = pred.detach().reshape(-1, pred.shape[-1])
+                probs = _as_np(pred[torch.as_tensor(rows, device=pred.device),
+                                    torch.as_tensor(label, device=pred.device).long()])
+            else:
+                pred = numpy.asarray(pred)
+                probs = pred.reshape(-1, pred.shape[-1])[rows, label]
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label).astype(probs.dtype)
+                probs = probs * (1 - ignore) + ignore
+                num -= int(ignore.sum())
+            loss -= numpy.sum(numpy.log(numpy.maximum(1e-10, probs)))
+            num += label.shape[0]
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
 class VOCMApMetric:
     """Mean average precision of detections over the classes that have
     ground truth (``examples/ssd/metric.py VOCMApMetric``; reference
@@ -271,4 +313,5 @@ class VOCMApMetric:
 register(Accuracy, "acc", "accuracy")
 register(TopKAccuracy, "top_k_accuracy", "top_k_acc")
 register(CrossEntropy, "ce", "cross-entropy")
+register(Perplexity, "perplexity")
 register(CompositeEvalMetric, "composite")

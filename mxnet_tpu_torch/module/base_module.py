@@ -85,6 +85,12 @@ class BaseModule:
         raise NotImplementedError()
 
     # -- built on them ------------------------------------------------------------
+    def prepare(self, data_batch):
+        """Get ready for ``data_batch``, the batch after the current one
+        (reference base_module.py prepare): nothing for a module of one
+        executor, which copies a batch to its device at ``forward``; a
+        ``BucketingModule`` binds the batch's bucket."""
+
     def forward_backward(self, data_batch):
         """A training forward, then the backward (reference
         base_module.py:192)."""
@@ -216,6 +222,7 @@ class BaseModule:
                 self.update()
                 try:
                     next_data_batch = next(data_iter)
+                    self.prepare(next_data_batch)
                 except StopIteration:
                     end_of_batch = True
                 self.update_metric(eval_metric, data_batch.label)

@@ -4,8 +4,9 @@ bind :364, init_optimizer :473, forward :572, update :643,
 save_checkpoint :165).
 
 One executor on one device; a batch of another shape re-binds it
-(``reshape``), keeping the parameters.  ``update`` is one multi-tensor
-optimizer step over every parameter (``Optimizer.update_multi``: for SGD,
+(``reshape``), keeping the parameters; ``bind(shared_module=)`` shares
+another module's parameter tensors (``BucketingModule``'s buckets).
+``update`` is one multi-tensor optimizer step over every parameter (``Optimizer.update_multi``: for SGD,
 ``torch._foreach_*`` operations in ``sgd_rule``'s order, the port of the
 JAX package's fused step, ``module/fused_step.py``).  Data parallelism
 (``mesh=``, ``dist_*`` kvstores) is ROADMAP A10.
@@ -37,12 +38,13 @@ class Module(BaseModule):
     (None means CUDA, which raises without a card unless ``device="cpu"``)."""
 
     def __init__(self, symbol, data_names=("data",), label_names=("softmax_label",),
-                 logger=logging, device=None, mesh=None):
+                 logger=logging, device=None, mesh=None, fixed_param_names=None):
         super().__init__(logger=logger)
         if mesh is not None:
             raise NotImplementedError("Module(mesh=) data parallelism is not ported "
                                       "(ROADMAP A10)")
         self._device = resolve_device(device)
+        self._fixed_param_names = list(fixed_param_names or [])
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -154,13 +156,17 @@ class Module(BaseModule):
 
     # -- bind ---------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True, inputs_need_grad=False,
-             force_rebind=False, grad_req="write"):
+             force_rebind=False, shared_module=None, grad_req="write"):
         """Bind the executor for these (name, shape) inputs.  With
         ``for_training`` the parameters get gradient buffers (``grad_req``:
-        one request, or a dict by name), and the data too with
-        ``inputs_need_grad``; labels get none.  Parameters already held
-        (a re-bind, ``Module.load``) keep their tensors where the shape
-        matches."""
+        one request, or a dict by name; none for ``fixed_param_names``), and
+        the data too with ``inputs_need_grad``; labels get none.  Parameters
+        already held (a re-bind, ``Module.load``) keep their tensors where
+        the shape matches.  With ``shared_module`` (a bound Module of the
+        same parameters, as ``BucketingModule`` binds its buckets) the
+        parameters and auxiliary states are that module's tensors
+        themselves, so an update through either module moves both; its
+        initialised parameters count as this module's."""
         if force_rebind:
             self._exec = None
             self.binded = False
@@ -186,12 +192,23 @@ class Module(BaseModule):
                 return own[n]
             return zeros(shape)
 
-        args = {n: array(n, shape_of[n], self._arg_params) for n in arg_names}
-        aux = {n: array(n, s, self._aux_params) for n, s in zip(self._aux_names, aux_shapes)}
+        def shared(names, which):
+            if shared_module is None:
+                return {}
+            have = getattr(shared_module._exec, which)
+            return {n: have[n] for n in names if n in have}
+
+        own_args = dict(self._arg_params or {}, **shared(self._param_names, "arg_dict"))
+        own_aux = dict(self._aux_params or {}, **shared(self._aux_names, "aux_dict"))
+        args = {n: array(n, shape_of[n], own_args) for n in arg_names}
+        aux = {n: array(n, s, own_aux) for n, s in zip(self._aux_names, aux_shapes)}
         grads, req = None, "null"
         if for_training and grad_req != "null":
             grads, req = {}, {}
             for n in self._param_names:
+                if n in self._fixed_param_names:
+                    req[n] = "null"
+                    continue
                 req[n] = grad_req if isinstance(grad_req, str) else grad_req.get(n, "write")
                 grads[n] = zeros(shape_of[n])
             for n in self._data_names:
@@ -203,6 +220,9 @@ class Module(BaseModule):
         self._exec = self._symbol.bind(self._device, args=args, args_grad=grads,
                                        grad_req=req, aux_states=aux)
         self.binded = True
+        if shared_module is not None and shared_module.params_initialized:
+            self._sync_params_from_exec()
+            self.params_initialized = True
 
     def reshape(self, data_shapes, label_shapes=None):
         """Re-bind for new input shapes, keeping the parameters (reference

@@ -47,6 +47,8 @@ _IGNORED_ATTRS = frozenset({"name", "attr", "__layout__", "cudnn_tune", "cudnn_o
 _VISIBLE_RULES = {
     "BatchNorm": lambda attrs: 3 if attrs.get("output_mean_var") else 1,
     "_sample_multinomial": lambda attrs: 2 if attrs.get("get_prob") else 1,
+    "RNN": lambda attrs: ((3 if attrs.get("mode", "lstm") == "lstm" else 2)
+                          if attrs.get("state_outputs") else 1),
 }
 
 
@@ -125,6 +127,15 @@ def _invoke(opdef, args, kwargs):
     rule = _VISIBLE_RULES.get(opdef.name)
     result = _invoke_fn(opdef.fn, args, attrs, device=device,
                         visible=rule(attrs) if rule else None)
+    if opdef.mutates:
+        # the reference's mutable inputs (the optimizer updates): the extra
+        # outputs are the new values of the named arguments, written back
+        outs = result if isinstance(result, list) else [result]
+        for i, mname in enumerate(opdef.mutates):
+            idx = opdef.arg_names.index(mname)
+            if idx < len(args) and isinstance(args[idx], NDArray):
+                args[idx]._set_data(outs[1 + i]._data)
+        result = outs[0]
     if out_arr is not None:
         out_arr._set_data((result[0] if isinstance(result, list) else result)._data)
         return out_arr

@@ -13,5 +13,7 @@ from . import random_ops  # noqa: F401
 from . import quantization  # noqa: F401
 from . import misc_ops  # noqa: F401
 from . import detection  # noqa: F401
+from . import rnn  # noqa: F401
+from . import optimizer_ops  # noqa: F401
 
 _load_all = True

@@ -242,12 +242,22 @@ def pooling(data, *, kernel=(1, 1), pool_type="max", global_pool=False,
 
 @register("Activation")
 def activation(data, *, act_type):
-    """Activation (reference src/operator/nn/activation.cc); the ported
-    paths use ReLU only."""
-    if act_type != "relu":
-        raise NotImplementedError("Activation: only act_type='relu' is ported, "
-                                  "got %r" % act_type)
-    return torch.relu(data)
+    """Activation (reference src/operator/nn/activation.cc): ``relu``,
+    ``sigmoid``, ``tanh`` (the RNN cells' gates), ``softrelu`` (softplus)
+    and ``softsign``.  ``relu``'s gradient at exactly 0 is 0, the
+    reference's ``relu_grad``; the JAX op's ``jnp.maximum(x, 0)`` gives 1/2
+    there (ROADMAP §C)."""
+    if act_type == "relu":
+        return torch.relu(data)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return F.softplus(data)
+    if act_type == "softsign":
+        return F.softsign(data)
+    raise ValueError("unknown act_type %r" % (act_type,))
 
 
 @register("Dropout")
@@ -374,3 +384,49 @@ def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0, multi_outp
         return torch.softmax(data, dim=1 if multi_output else -1)
     return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label, multi_output,
                                 use_ignore, normalization, smooth_alpha)
+
+
+# -- sequence ops (``mxnet_tpu/ops/nn.py``: reference sequence_mask.cc,
+# sequence_last.cc, sequence_reverse.cc); data is (seq, batch, ...) for axis 0
+
+@register("SequenceMask")
+def sequence_mask(data, sequence_length=None, *, use_sequence_length=False, value=0.0,
+                  axis=0):
+    """``value`` at the positions past each sequence's length; ``data`` as
+    it is without ``use_sequence_length``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    pos = torch.arange(data.shape[axis], device=data.device)
+    lengths = sequence_length.to(torch.int32)
+    mask = pos[:, None] < lengths[None, :] if axis == 0 else pos[None, :] < lengths[:, None]
+    mask = mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.full((), value, dtype=data.dtype,
+                                              device=data.device))
+
+
+@register("SequenceLast")
+def sequence_last(data, sequence_length=None, *, use_sequence_length=False, axis=0):
+    """Each sequence's last valid step (the last step without
+    ``use_sequence_length``)."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    idx = sequence_length.to(torch.int64) - 1
+    shape = list(data.shape)
+    shape[axis] = 1
+    view = (1, -1) if axis == 0 else (-1, 1)
+    idx = idx.reshape(view + (1,) * (data.dim() - 2)).expand(shape)
+    return torch.gather(data, axis, idx).squeeze(axis)
+
+
+@register("SequenceReverse")
+def sequence_reverse(data, sequence_length=None, *, use_sequence_length=False, axis=0):
+    """Each sequence reversed up to its length (the positions past it stay);
+    the whole axis without ``use_sequence_length``.  With lengths the time
+    axis is 0, as in the JAX op."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    pos = torch.arange(data.shape[0], device=data.device)[:, None]
+    lengths = sequence_length.to(torch.int64)[None, :]
+    rev = torch.where(pos < lengths, lengths - 1 - pos, pos)
+    rev = rev.reshape(rev.shape + (1,) * (data.dim() - 2)).expand(data.shape)
+    return torch.gather(data, 0, rev)

@@ -12,8 +12,9 @@ functions from these entries, reads the tensor-argument names for
 tensors; the imperative frontend (``mxnet_tpu_torch.nd``) builds its
 ``nd.*`` functions from the same entries.  Registered: the operators of the
 ResNet symbol, the ``bench.py`` Module MLP, Dropout, int8 post-training
-quantization, the SSD, proposal and deformable detection ops, and the
-elementwise, reduce, shape, indexing, creation and random groups.  An op's
+quantization, the SSD, proposal and deformable detection ops, the
+elementwise, reduce, shape, indexing, creation and random groups, the
+fused ``RNN`` op, the sequence ops and the optimizer updates.  An op's
 ``alias`` names (``MultiBoxPrior`` for ``_contrib_MultiBoxPrior``) reach
 the same entry.  An op whose tensor inputs are ``*args`` (``Concat``,
 ``add_n``) is ``variadic``.
@@ -42,11 +43,14 @@ class OpDef:
     auxiliary states after a training forward from the op's outputs (the
     reference mutates them inside the kernel; the executor applies this);
     ``num_outputs(attrs)`` the number of outputs of an op that returns a
-    tuple (``SliceChannel``), for the symbolic frontend.
+    tuple (``SliceChannel``), for the symbolic frontend; ``mutates`` names
+    the tensor arguments that an op updates in place in the reference (the
+    optimizer updates): the op returns ``(out, *their new values)`` and
+    ``mx.nd`` writes the new values back into those arguments.
     """
 
     def __init__(self, name, fn, aux=(), inputs_fn=None, infer_params=None,
-                 aux_update=None, num_outputs=None):
+                 aux_update=None, num_outputs=None, mutates=()):
         self.name = name
         self.fn = fn
         self.hint = name.lower().lstrip("_")
@@ -55,6 +59,7 @@ class OpDef:
         self.infer_params = infer_params
         self.aux_update = aux_update
         self.num_outputs = num_outputs
+        self.mutates = tuple(mutates)
         params = inspect.signature(fn).parameters.values()
         self.variadic = any(p.kind == inspect.Parameter.VAR_POSITIONAL for p in params)
         positional = [p for p in params if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD]
@@ -69,14 +74,14 @@ class OpDef:
 
 
 def register(name, alias=(), aux=(), inputs_fn=None, infer_params=None,
-             aux_update=None, num_outputs=None):
+             aux_update=None, num_outputs=None, mutates=()):
     """Decorator: register ``fn`` as operator ``name``, also reached by the
     names in ``alias``.  The function itself is returned unchanged."""
 
     def _reg(fn):
         opdef = OpDef(name, fn, aux=aux, inputs_fn=inputs_fn,
                       infer_params=infer_params, aux_update=aux_update,
-                      num_outputs=num_outputs)
+                      num_outputs=num_outputs, mutates=mutates)
         for key in (name,) + tuple(alias):
             if key in _REGISTRY:
                 raise ValueError("duplicate op registration: %s" % key)

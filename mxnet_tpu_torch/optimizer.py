@@ -9,7 +9,8 @@ decay only on names ending in ``_weight`` or ``_gamma``).  ``SGD`` applies
 ``sgd_rule`` in place, one parameter at a time (``update``, the ``Updater``
 path) or over a list of parameters as multi-tensor ``torch._foreach_*``
 operations (``update_multi``, what ``Module.update`` runs), with the same
-arithmetic.  The other optimizers of the reference are ROADMAP A11.
+arithmetic.  ``Adam`` applies ``adam_rule`` (the LSTM language model's
+optimizer).  The other optimizers of the reference are ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -18,11 +19,12 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create", "register", "sgd_rule"]
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create", "register",
+           "sgd_rule", "adam_rule"]
 
 _OPT_REGISTRY = {}
 # the JAX package's other optimizers, not ported yet
-_NOT_PORTED = ("nag", "signum", "sgld", "adam", "adagrad", "adadelta", "adamax", "nadam",
+_NOT_PORTED = ("nag", "signum", "sgld", "adagrad", "adadelta", "adamax", "nadam",
                "rmsprop", "ftrl", "ftml", "dcasgd", "lbsgd")
 
 
@@ -52,6 +54,18 @@ def sgd_rule(w, g, mom, *, lr, wd, momentum=0.0):
         return w - lr * g, None
     new_mom = momentum * mom - lr * g
     return w + new_mom, new_mom
+
+
+def adam_rule(w, g, m, v, t, *, lr, wd, beta1=0.9, beta2=0.999, epsilon=1e-8):
+    """One Adam step at update count ``t`` in the JAX rule's order of
+    operations: ``g + wd·w``, the two moments, then ``w − lr_t·m / (√v + ε)``
+    with ``lr_t = lr·√(1 − β2ᵗ) / (1 − β1ᵗ)`` on the host -> (new weight,
+    new m, new v)."""
+    g = g + wd * w
+    m = beta1 * m + (1 - beta1) * g
+    v = beta2 * v + (1 - beta2) * torch.square(g)
+    lr_t = lr * ((1.0 - beta2 ** t) ** 0.5) / (1.0 - beta1 ** t)
+    return w - lr_t * m / (torch.sqrt(v) + epsilon), m, v
 
 
 class Optimizer:
@@ -191,6 +205,52 @@ class SGD(Optimizer):
         torch._foreach_add_(weights, states)
 
 
+@register
+class Adam(Optimizer):
+    """Adam (reference optimizer.py Adam, ``adam_update``): ``adam_rule`` in
+    place, one parameter at a time; the state is (m, v)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        if grad.layout != torch.strided:
+            raise NotImplementedError("Adam's row-sparse update waits for the sparse "
+                                      "arrays (ROADMAP A14)")
+        self._update_count(index)
+        m, v = state
+        new_w, new_m, new_v = adam_rule(
+            weight, self._preprocess(grad), m, v, self._index_update_count[index],
+            lr=self._get_lr(index), wd=self._get_wd(index), beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon)
+        weight.copy_(new_w)
+        m.copy_(new_m)
+        v.copy_(new_v)
+
+
+def _to_numpy(state):
+    """A state (a tensor, a tuple of them or None) as numpy."""
+    if state is None or isinstance(state, np.ndarray):
+        return state
+    if isinstance(state, (tuple, list)):
+        return tuple(_to_numpy(s) for s in state)
+    return state.detach().cpu().numpy()
+
+
+def _is_numpy(state):
+    """A state that ``set_states`` loaded: numpy, or a tuple of numpy."""
+    if isinstance(state, tuple):
+        return bool(state) and all(isinstance(s, np.ndarray) for s in state)
+    return isinstance(state, np.ndarray)
+
+
 class Updater:
     """Applies an optimizer to indexed parameters, keeping their states
     (reference optimizer.py Updater)."""
@@ -202,8 +262,11 @@ class Updater:
     def _state(self, index, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
-        elif isinstance(self.states[index], np.ndarray):  # loaded by set_states
-            self.states[index] = torch.as_tensor(self.states[index], device=weight.device)
+        elif _is_numpy(self.states[index]):  # loaded by set_states
+            state = self.states[index]
+            self.states[index] = (
+                tuple(torch.as_tensor(s, device=weight.device) for s in state)
+                if isinstance(state, tuple) else torch.as_tensor(state, device=weight.device))
         return self.states[index]
 
     def __call__(self, index, grad, weight):
@@ -215,10 +278,10 @@ class Updater:
         self.optimizer.update_multi(indices, weights, grads, states)
 
     def get_states(self, dump_optimizer=False):
-        """The states pickled as {index: numpy array or None}, the JAX
-        package's layout (with ``dump_optimizer``, ``(states, optimizer)``)."""
-        states = {k: v if v is None or isinstance(v, np.ndarray) else v.detach().cpu().numpy()
-                  for k, v in self.states.items()}
+        """The states pickled as {index: numpy array, tuple of them (Adam) or
+        None}, the JAX package's layout (with ``dump_optimizer``,
+        ``(states, optimizer)``)."""
+        states = {k: _to_numpy(v) for k, v in self.states.items()}
         return pickle.dumps((states, self.optimizer) if dump_optimizer else states)
 
     def set_states(self, states_bytes):
@@ -228,7 +291,9 @@ class Updater:
         data = pickle.loads(states_bytes)
         if isinstance(data, tuple):
             data, self.optimizer = data
-        self.states = {k: None if v is None else np.asarray(v) for k, v in data.items()}
+        self.states = {k: None if v is None else
+                       tuple(np.asarray(a) for a in v) if isinstance(v, (tuple, list))
+                       else np.asarray(v) for k, v in data.items()}
 
 
 def get_updater(optimizer):

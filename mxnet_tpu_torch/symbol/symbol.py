@@ -103,7 +103,7 @@ class NameManager:
 
 class Symbol:
     __slots__ = ("op", "inputs", "attrs", "name", "num_outputs", "out_index",
-                 "_dtype_hint", "_user_attrs")
+                 "_dtype_hint", "_shape_hint", "_user_attrs")
 
     def __init__(self, op, inputs, attrs, name, num_outputs=1, out_index=None,
                  user_attrs=None):
@@ -114,6 +114,7 @@ class Symbol:
         self.num_outputs = num_outputs
         self.out_index = out_index    # set on one output of a multi-output node
         self._dtype_hint = None       # a variable's torch dtype, if not float32
+        self._shape_hint = None       # a variable's shape, 0 for an unknown axis
         self._user_attrs = dict(user_attrs or {})  # __lr_mult__, __init__, ...
 
     # -- graph structure ----------------------------------------------------
@@ -245,11 +246,55 @@ class Symbol:
                 [shape(n) for n in aux_names])
 
     # -- arithmetic -----------------------------------------------------------
+    _SCALAR_OPS = {"broadcast_add": ("_plus_scalar", "_plus_scalar"),
+                   "broadcast_sub": ("_minus_scalar", "_rminus_scalar"),
+                   "broadcast_mul": ("_mul_scalar", "_mul_scalar"),
+                   "broadcast_div": ("_div_scalar", "_rdiv_scalar"),
+                   "broadcast_power": ("_power_scalar", "_rpower_scalar")}
+
+    def _binop(self, opname, other, reverse=False):
+        """``self <op> other`` (``other <op> self`` with ``reverse``): the
+        ``broadcast_<op>`` node for two symbols, the ``_<op>_scalar`` one
+        for a number (the JAX Symbol's operators)."""
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            name = NameManager.current().get(None, opname)
+            return Symbol(_registry.get(opname), [a, b], {}, name)
+        if not isinstance(other, (int, float)):
+            return NotImplemented
+        sop = _registry.get(self._SCALAR_OPS[opname][1 if reverse else 0])
+        name = NameManager.current().get(None, sop.hint)
+        return Symbol(sop, [self], {"scalar": float(other)}, name)
+
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            return NotImplemented  # Symbol + scalar (_plus_scalar) is not ported
-        name = NameManager.current().get(None, "broadcast_add")
-        return Symbol(_registry.get("broadcast_add"), [self, other], {}, name)
+        return self._binop("broadcast_add", other)
+
+    def __radd__(self, other):
+        return self._binop("broadcast_add", other, True)
+
+    def __sub__(self, other):
+        return self._binop("broadcast_sub", other)
+
+    def __rsub__(self, other):
+        return self._binop("broadcast_sub", other, True)
+
+    def __mul__(self, other):
+        return self._binop("broadcast_mul", other)
+
+    def __rmul__(self, other):
+        return self._binop("broadcast_mul", other, True)
+
+    def __truediv__(self, other):
+        return self._binop("broadcast_div", other)
+
+    def __rtruediv__(self, other):
+        return self._binop("broadcast_div", other, True)
+
+    def __pow__(self, other):
+        return self._binop("broadcast_power", other)
+
+    def __neg__(self):
+        return self._binop("broadcast_mul", -1.0)
 
     def __repr__(self):
         return "<Symbol %s>" % self.name
@@ -416,10 +461,21 @@ def _make_sym_op_func(opdef, public_name):
     return sym_func
 
 
-def Variable(name, attr=None):
+def Variable(name, attr=None, shape=None, dtype=None, init=None):
     """A symbolic variable; ``attr`` its user attributes (``{"__lr_mult__":
-    "0.1"}``, ``{"__init__": initializer.dumps()}``)."""
-    return Symbol(None, [], {}, name, user_attrs=AttrScope.current().get(attr))
+    "0.1"}``), ``init`` an initializer for it (kept as its ``__init__``
+    attribute), ``shape`` a shape for shape inference where every axis is
+    known, ``dtype`` its dtype when not float32."""
+    user_attrs = AttrScope.current().get(attr)
+    if init is not None:
+        user_attrs = dict(user_attrs)
+        user_attrs["__init__"] = init if isinstance(init, str) else init.dumps()
+    s = Symbol(None, [], {}, name, user_attrs=user_attrs)
+    if shape is not None:
+        s._shape_hint = tuple(shape)
+    if dtype is not None:
+        s._dtype_hint = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
+    return s
 
 
 var = Variable
@@ -472,6 +528,8 @@ def _infer_graph(sym, known_shapes, type_dict=None):
         if node.is_var:
             if node.name in known_shapes:
                 metas[node.name] = meta(known_shapes[node.name], node)
+            elif node._shape_hint is not None and all(node._shape_hint):
+                metas[node.name] = meta(node._shape_hint, node)
             continue
         in_names = [_sym_out_name(i) for i in node.inputs]
         arg_names = _node_input_names(node)

@@ -40,6 +40,7 @@ from mxnet_tpu_torch.gluon.model_zoo import FasterRCNN, load_jax_params
 from mxnet_tpu_torch.ops import detection as tdet
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.ops import rcnn_targets as ttargets
+from xdist_shared import shared
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BF = torch.bfloat16
@@ -91,7 +92,12 @@ def _randoms(key, Hf, Wf, A):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
+    """``_run()``, computed once per test run (``xdist_shared``)."""
+    return shared(tmp_path_factory, "torch_frcnn_run", _run)
+
+
+def _run():
     """Both sides built once: the JAX serve forward, training forward and
     STEPS fp32 steps and one bf16 step, jitted, and the port's, from the
     same weights and the same random inputs."""

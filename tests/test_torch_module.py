@@ -477,6 +477,6 @@ def test_module_refuses_what_is_not_ported(nets):
     with pytest.raises(NotImplementedError, match="A10"):
         mod.init_optimizer(kvstore="dist_sync")
     with pytest.raises(NotImplementedError, match="A11"):
-        mod.init_optimizer(optimizer="adam")
+        mod.init_optimizer(optimizer="rmsprop")
     with pytest.warns(UserWarning, match="rescale_grad"):
         mod.init_optimizer(optimizer=topt.SGD(learning_rate=0.1))

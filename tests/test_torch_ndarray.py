@@ -1,8 +1,10 @@
 """The imperative frontend's operator groups (mxnet_tpu_torch.ops: elemwise,
-reduce, matrix, indexing, init_ops, random_ops, misc, the detection
-registrations) against mxnet_tpu.ops, name by name, on the same numpy
-inputs on the CPU; then NDArray's methods and operators and the Reshape
-codes against mxnet_tpu.nd.
+reduce, matrix, indexing, init_ops, random_ops, rnn, optimizer_ops, misc,
+the sequence ops, the detection registrations) against mxnet_tpu.ops, name
+by name, on the same numpy inputs on the CPU; the optimizer updates' write
+back of the states they update (``mutates``) through ``mx.nd``; then
+NDArray's methods and operators and the Reshape codes against
+mxnet_tpu.nd.
 
 Tolerances: shape, index, comparison, logic and integer results must be
 equal; fp32 math within rtol 1e-6, atol 1e-6 (another library's
@@ -27,8 +29,9 @@ from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.ops import registry as treg
 
-GROUPS = ("elemwise", "reduce", "matrix", "indexing", "init_ops", "random_ops")
-MISC = ("reshape_like", "_copyto")
+GROUPS = ("elemwise", "reduce", "matrix", "indexing", "init_ops", "random_ops", "rnn",
+          "optimizer_ops")
+MISC = ("reshape_like", "_copyto", "SequenceMask", "SequenceLast", "SequenceReverse")
 DETECTION = ("_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
              "_contrib_PSROIPooling", "ROIPooling")
 
@@ -186,6 +189,36 @@ SPECIAL = {
     # misc
     "reshape_like": lambda: ([U(2, 6), U(3, 4)], {}, True),
     "_copyto": lambda: ([U(2, 3)], {}, True),
+    # rnn and the sequence ops: data (seq, batch, ...), lengths per batch row
+    "RNN": lambda: ([U(3, 2, 3), U(144, lo=-0.5, hi=0.5), U(1, 2, 4), U(1, 2, 4)],
+                    dict(state_size=4, num_layers=1, mode="lstm", state_outputs=True), False),
+    "split_v2": lambda: ([U(4, 6)], dict(indices_or_sections=(1, 3), axis=1), True),
+    "SequenceMask": lambda: ([U(4, 3, 2), _idx(2, 4, 1)],
+                             dict(use_sequence_length=True, value=-1.0), True),
+    "SequenceLast": lambda: ([U(4, 3, 2), _idx(2, 4, 1)], dict(use_sequence_length=True), True),
+    "SequenceReverse": lambda: ([U(4, 3, 2), _idx(2, 4, 1)], dict(use_sequence_length=True),
+                                True),
+    # optimizer updates: (weight, grad, *states); second moments positive
+    "sgd_update": lambda: ([U(3, 4), U(3, 4)],
+                           dict(lr=0.1, wd=0.01, rescale_grad=0.5, clip_gradient=0.8), False),
+    "sgd_mom_update": lambda: ([U(3, 4), U(3, 4), U(3, 4)],
+                               dict(lr=0.1, momentum=0.9, wd=0.01, clip_gradient=0.8), False),
+    "mp_sgd_update": lambda: ([U(3, 4), U(3, 4), U(3, 4)], dict(lr=0.1, wd=0.01), False),
+    "mp_sgd_mom_update": lambda: ([U(3, 4), U(3, 4), U(3, 4), U(3, 4)],
+                                  dict(lr=0.1, momentum=0.9, wd=0.01), False),
+    "adam_update": lambda: ([U(3, 4), U(3, 4), U(3, 4), U(3, 4, **POS)],
+                            dict(lr=0.01, wd=0.01, rescale_grad=2.0, clip_gradient=0.5), False),
+    "ftml_update": lambda: ([U(3, 4), U(3, 4), U(3, 4, **POS), U(3, 4, **POS), U(3, 4)],
+                            dict(lr=0.1, t=3, wd=0.01, clip_grad=1.0), False),
+    "rmsprop_update": lambda: ([U(3, 4), U(3, 4), U(3, 4, **POS)],
+                               dict(lr=0.01, clip_gradient=1.0, clip_weights=1.0), False),
+    "rmspropalex_update": lambda: ([U(3, 4), U(3, 4), U(3, 4, lo=2.0, hi=4.0), U(3, 4, **UNIT),
+                                    U(3, 4)], dict(lr=0.01, clip_weights=1.5), False),
+    "ftrl_update": lambda: ([U(3, 4), U(3, 4), U(3, 4), U(3, 4, **POS)],
+                            dict(lr=0.1, lamda1=0.5, wd=0.01), False),
+    "signsgd_update": lambda: ([U(3, 4), U(3, 4)], dict(lr=0.1, wd=0.01), False),
+    "signum_update": lambda: ([U(3, 4), U(3, 4), U(3, 4)],
+                              dict(lr=0.1, momentum=0.9, wd=0.01, wd_lh=0.01), False),
 }
 
 INIT = {"_zeros", "_ones", "_full", "_arange", "_eye", "_linspace"}
@@ -256,6 +289,30 @@ def test_op_against_jax(name):
     tattrs = dict(attrs, device="cpu") if name in INIT else attrs
     got = treg.get(name).fn(*[torch.from_numpy(a) for a in inputs], **tattrs)
     _compare(got, ref, exact, name)
+
+
+UPDATES = sorted(n for n in JAX_NAMES if n.endswith("_update"))
+
+
+@pytest.mark.parametrize("name", UPDATES)
+def test_update_op_writes_back_what_it_mutates(name):
+    """``nd.<update>(w, g, *states, out=w)`` through each frontend: the
+    weight and every state it names in ``mutates`` hold the new values, as
+    the JAX eager frontend writes them back."""
+    assert treg.get(name).mutates == jreg.get(name).mutates
+    inputs, attrs, _ = _case(name)
+    jargs = [jmx.nd.array(a) for a in inputs]
+    with tmx.cpu():
+        targs = [tmx.nd.array(a) for a in inputs]
+        got = getattr(tmx.nd, name)(*targs, out=targs[0], **attrs)
+    getattr(jmx.nd, name)(*jargs, out=jargs[0], **attrs)
+    assert got is targs[0]
+    for i, (t, j) in enumerate(zip(targs, jargs)):
+        np.testing.assert_allclose(t.asnumpy(), j.asnumpy(), rtol=1e-6, atol=1e-6,
+                                   err_msg="%s input %d" % (name, i))
+    moved = {0} | {jreg.get(name).arg_names.index(m) for m in jreg.get(name).mutates}
+    for i, (t, a) in enumerate(zip(targs, inputs)):
+        assert (i in moved) != np.array_equal(t.asnumpy(), a), (name, i)
 
 
 def _draw(name, seed, attrs, params):

@@ -29,6 +29,46 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+@pytest.mark.parametrize("op", ["Activation", "relu", "RNN"])
+def test_relu_matches_jax_but_keeps_the_reference_gradient_at_zero(op):
+    """Every ReLU of the port (the Activation op, the relu op, the RNN op's
+    relu mode) has the JAX op's values and gradients, but at an input of
+    exactly 0 its gradient is 0, the reference's relu_grad, where the JAX
+    op's ``jnp.maximum(x, 0)`` passes 1/2 (ROADMAP §C).  The RNN case is one
+    step whose pre-activations are 0 (zero weights and biases), 1e-3 or
+    -1e-3 (a bias of that value)."""
+    from mxnet_tpu.ops import registry as jreg
+    from mxnet_tpu_torch.ops import registry as treg
+
+    if op == "RNN":
+        kw = dict(state_size=3, num_layers=1, mode="rnn_relu")
+        x = np.zeros(3 * 2 + 3 * 3 + 3 + 3, np.float32)  # i2h, h2h weights; biases
+        x[15:18] = [0.0, 1e-3, -1e-3]  # the i2h biases
+        args = (np.ones((1, 1, 2), np.float32), np.zeros((1, 1, 3), np.float32))
+        jf = lambda p: jreg.get(op).fn(jnp.asarray(args[0]), p, jnp.asarray(args[1]),  # noqa: E731
+                                       **kw)[0]
+        tf = lambda p: treg.get(op).fn(_t(args[0]), p, _t(args[1]), **kw)[0]  # noqa: E731
+        tie = np.zeros(x.size, bool)  # what reaches unit 0, whose pre-activation is 0
+        tie[[0, 1, 15, 18]] = True  # (its h2h weights meet a zero state)
+        g = np.array([[[1.0, 2.0, 3.0]]], np.float32)
+    else:
+        kw = {"act_type": "relu"} if op == "Activation" else {}
+        x = np.array([-2.0, -0.0, 0.0, 1e-30, 3.0, 0.0], np.float32)
+        jf = lambda a: jreg.get(op).fn(a, **kw)  # noqa: E731
+        tf = lambda a: treg.get(op).fn(a, **kw)  # noqa: E731
+        tie = x == 0
+        g = np.arange(1.0, 7.0, dtype=np.float32)
+    ref_y, vjp = jax.vjp(jf, jnp.asarray(x))
+    (ref_dx,) = vjp(jnp.asarray(g))
+    xt = _t(x).requires_grad_()
+    y = tf(xt)
+    y.backward(_t(g))
+    got, ref = xt.grad.numpy(), np.asarray(ref_dx)
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(ref_y))
+    np.testing.assert_array_equal(got[~tie], ref[~tie])
+    assert tie.any() and (got[tie] == 0).all() and (ref[tie] != 0).all()
+
+
 def test_convolution_with_stride_pad_dilation():
     rng = np.random.RandomState(0)
     x = rng.randn(2, 8, 13, 11).astype(np.float32)

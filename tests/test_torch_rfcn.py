@@ -305,7 +305,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     "__init__", "block", "parameter", "trainer")),
                 *(port / "examples" / "deformable_rfcn" / (m + ".py") for m in (
                     "__init__", "deformable_rfcn", "rcnn_helpers", "train")),
-                port / "examples" / "__init__.py"):
+                port / "examples" / "__init__.py",
+                port / "ops" / "rnn.py", port / "ops" / "optimizer_ops.py",
+                *(port / "rnn" / (m + ".py") for m in ("__init__", "rnn_cell", "io", "rnn")),
+                port / "module" / "bucketing_module.py",
+                *(port / "examples" / "rnn" / (m + ".py") for m in (
+                    "__init__", "lstm_bucketing"))):
         assert new in files
     for f in files:
         for mod in _imports(f):

@@ -24,6 +24,7 @@ from mxnet_tpu.ops import nn as jnn
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu.io import NDArrayIter as JaxIter
 from mxnet_tpu.name import NameManager as JaxNameManager
+from mxnet_tpu.symbol import load_json as jax_load_json
 from mxnet_tpu_torch import symbol as tsym
 from mxnet_tpu_torch.contrib import quantization as tquant
 from mxnet_tpu_torch.gluon.model_zoo.convert import symbol_params_from_jax
@@ -33,6 +34,7 @@ from mxnet_tpu_torch.ops import elemwise as telem
 from mxnet_tpu_torch.ops import matrix as tmat
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.ops import reduce as tred
+from xdist_shared import shared
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE = (4, 3, 32, 32)
@@ -148,14 +150,32 @@ def nets():
 
 
 @pytest.fixture(scope="module")
-def quantized(nets):
+def quantized(nets, tmp_path_factory):
     """quantize_model on both sides: naive calibration over two batches of
-    four, fc1 left in fp32 as upstream's ResNet example does."""
+    four, fc1 left in fp32 as upstream's ResNet example does.  The JAX
+    side is computed once per test run (``xdist_shared``) and passed on as
+    its symbol's JSON, which loads back to the same nodes and attributes,
+    the dtypes of its variables (which JSON does not keep) and numpy
+    arrays."""
     n = nets
-    jq = jquant.quantize_model(
-        n["jnet"], {k: nd.array(v) for k, v in n["args"].items()},
-        {k: nd.array(v) for k, v in n["aux"].items()}, excluded_sym_names=["fc1"],
-        calib_mode="naive", calib_data=JaxIter(n["calib"], batch_size=4))
+
+    def jax_side():
+        qsym, qargs, qaux = jquant.quantize_model(
+            n["jnet"], {k: nd.array(v) for k, v in n["args"].items()},
+            {k: nd.array(v) for k, v in n["aux"].items()}, excluded_sym_names=["fc1"],
+            calib_mode="naive", calib_data=JaxIter(n["calib"], batch_size=4))
+        hints = {v.name: v._dtype_hint for v in qsym._walk() if v.is_var}
+        return (qsym.tojson(), hints, {k: v.asnumpy() for k, v in qargs.items()},
+                {k: v.asnumpy() for k, v in qaux.items()})
+
+    js, hints, jargs, jaux = shared(tmp_path_factory, "torch_symbol_jax_quantized",
+                                   jax_side)
+    jqsym = jax_load_json(js)
+    for v in jqsym._walk():
+        if v.is_var:
+            v._dtype_hint = hints[v.name]
+    jq = (jqsym, {k: nd.array(v, dtype=v.dtype) for k, v in jargs.items()},
+          {k: nd.array(v, dtype=v.dtype) for k, v in jaux.items()})
     tq = tquant.quantize_model(
         n["tnet"], n["args"], n["aux"], device="cpu", excluded_sym_names=["fc1"],
         calib_mode="naive", calib_data=NDArrayIter(torch.from_numpy(n["calib"]),
@@ -331,8 +351,12 @@ def test_symbol_structure():
     assert q.infer_shape(a=(5,))[1] == [(5,), (1,), (1,)]
     with pytest.raises(ValueError, match="unknown for"):
         s.infer_shape(a=(2, 3))
+    with tsym.NameManager():
+        c = 1.0 - a * 2.0
+    assert (c.op.name, c.attrs, c.inputs[0].op.name) == ("_rminus_scalar", {"scalar": 1.0},
+                                                         "_mul_scalar")
     with pytest.raises(TypeError):
-        a + 1.0  # noqa: B018  (_plus_scalar is not ported)
+        a + "1"  # noqa: B018  (a number or a symbol only)
 
 
 def test_ndarray_iter_pads_the_last_batch_by_wrapping():
