@@ -117,6 +117,37 @@ Phases, in order; any failure exits non-zero:
    peak memory; no ported kernel launched; last, the FusedRNNCell stack
    (the ``RNN`` op) against its ``unfuse()`` on the card (1e-5), on the
    cell stack's weights after its epoch;
+8h. image classification, after lstm_bucketing.  ``imagenet_alexnet``:
+   ``train_imagenet.py --network alexnet --benchmark 1`` through the port's
+   ``fit.fit`` (the script's defaults: batch 128, 3x224x224, 1,000 classes,
+   sgd lr 0.1 momentum 0.9 wd 1e-4, Xavier(gaussian, in, 2), the ``device``
+   kvstore, ``--top-k 5``; one tower, 50.8 M parameters, two LRNs a
+   forward), first its first two batches on the card against the CPU from
+   the same weights and keep masks through Module and the kvstore as
+   fit.fit runs them (TF32 off; in float32 the first loss within 1e-5, the
+   second within 1e-3 and the card's first update no further from the
+   float64 update than twice the CPU's; bound in float64 both losses and
+   the first update within 1e-10; each card run then goes on alone for 6
+   steps, printing the divergence of the recipe at lr 0.1), then one epoch
+   of SyntheticDataIter's 50 batches at the defaults and one at lr 0.01,
+   whose weights stay finite: ms a batch and img/s over the last 40, peak
+   memory, one profiled step.  ``mnist_lenet_stn``: LeNet with its
+   spatial transformer (``lenet.get_symbol(add_stn=True)``) through
+   ``fit.fit`` on ``train_mnist.py``'s stand-in data, 40 batches of 64 at lr
+   0.01 (see LENET_ARGS): the first batch against the CPU within 1e-5;
+   three card epochs and one CPU epoch from one seed, each one's held-out
+   accuracy up by 0.4, and one card epoch at the script's lr 0.05
+   printed; ``stn_loc`` moved.  ``python_loss``: the
+   port's ``examples/module/python_loss.py`` (SequentialModule of an MLP
+   Module and a PythonLossModule hinge): 8 epochs above accuracy 0.9, the
+   first epoch's scores against the CPU within 1e-5.  ``optimizers``: one
+   gradient on AlexNet's parameters under each new optimizer (and
+   multi_precision on bf16 weights for SGD, NAG and Adam), the card within
+   1e-6 of the CPU, ms a step.  ``registry_ops``: the 55 operators of the
+   slice at the CPU tests' cases (``test_utils.registry_cases``), CTC at
+   (200, 16, 29) and Deconvolution at an FCN-32s head, forward and
+   gradients against the CPU port (gelqf / syevd up to each row's sign).
+   None of these paths launches a ported kernel;
 8c. ssd: the SSD path of BASELINE config 5 (``examples/ssd/train_fused.py``,
    VGG16-reduced, 20 classes, seeded Xavier weights, synthetic VOC images).
    ``ssd_serve``: the score step (forward, fp32 softmax, MultiBoxDetection
@@ -138,7 +169,9 @@ Phases, in order; any failure exits non-zero:
    each score path, and the batch-1 requests' calls, bit for bit against
    the plain version and times it at
    N 8,732 (the staged scan) and N 24,564 (``nms_scan_kernel_global``, the
-   fp32 and the bf16 score path), checking which scan ran.
+   fp32 and the bf16 score path), checking which scan ran: the C entry's
+   launch rule names it, and the profiler's device operations, where they
+   name a scan, must name that one.
    ``map_ssd300``: the SSD300 detection-quality gate at its full recipe
    (``quality.eval_ssd_map``: 3 classes, 2,000 bf16 steps at batch 4 on the
    device data stream with warm-up and step decays, the fp32 score step over
@@ -416,6 +449,79 @@ SERVE_DEPLOY_LADDER, SERVE_DEPLOY_REQUESTS, SERVE_DEPLOY_CLIENTS = (1, 8, 32), 4
 ROUTER_LADDER, ROUTER_MAX_QUEUE, ROUTER_FLOOD_CLIENTS = (1, 4, 16), 16, 8
 ROUTER_POLICY = dict(pressure=0.25, hold_s=2.0, interval_s=0.05)
 ROUTER_DEGRADE_WAIT_S = 30
+
+# slice 19.  imagenet_alexnet: train_imagenet.py's recipe (its defaults:
+# batch 128, 3x224x224, 1,000 classes, sgd lr 0.1 momentum 0.9 wd 1e-4, the
+# default Xavier(gaussian, in, 2), kvstore device) with --network alexnet
+# --benchmark 1 (SyntheticDataIter's 50 batches), one epoch, --top-k 5; the
+# card against the CPU on the first two batches (losses, and the first
+# update as a whole), through Module and the device KVStore as fit.fit
+# runs them; the ms a batch over the last ALEXNET_TIMED batches.
+# In float32 the first update cannot be held to the CPU's within 1e-4: the
+# CPU's own float32 update is 1.79e-4 from its float64 one (conv1's weight
+# gradient sums 373,248 terms an entry, conv1 2.0e-3 apart), and the card's
+# 2.54e-4 (NVIDIA H100 80GB HBM3, 700 W); in float64 the two devices agree to
+# 2.3e-15.  So the float32 run holds the first batch's loss within
+# ALEXNET_LOSS_RTOL, the second batch's (computed after that update, its
+# rounding carried: 4.5e-5 apart on that card) within ALEXNET_LOSS2_RTOL,
+# and the card's update no further than ALEXNET_FP32_ERROR_RATIO times the
+# CPU's from the float64 update; the float64 run (the same Module and
+# KVStore path bound in float64, the same weights, batches and masks) holds
+# both losses and the first update within ALEXNET_FLOAT64_RTOL.
+# The recipe at these defaults diverges on SyntheticDataIter's one repeated
+# batch (the loss inf from the fifth batch on the card): each card run goes
+# on alone for ALEXNET_FURTHER steps and prints its losses, in float32 and
+# in float64 alike.  The epoch at the defaults is timed on those non-finite
+# weights; the same epoch at ALEXNET_FINITE_LR keeps them finite (its loss
+# must fall), and is timed and profiled too
+ALEXNET_ARGS = ["--network", "alexnet", "--benchmark", "1", "--num-epochs", "1",
+                "--top-k", "5", "--disp-batches", "10"]
+ALEXNET_LOSS_RTOL, ALEXNET_LOSS2_RTOL, ALEXNET_FLOAT64_RTOL = 1e-5, 1e-3, 1e-10
+ALEXNET_FP32_ERROR_RATIO = 2.0
+ALEXNET_TIMED, ALEXNET_FURTHER, ALEXNET_FINITE_LR = 40, 6, 0.01
+# mnist_lenet_stn: train_mnist.py (batch 64, sgd momentum 0.9 wd 1e-4, its
+# synthetic stand-in data) with lenet.get_symbol(add_stn=True), one epoch of
+# 2,560 examples (40 batches), at --lr 0.01: at the script's 0.05 LeNet does
+# not learn the stand-in in 40 batches, in the JAX package's script and in
+# the port's alike (plain LeNet, CPU runs; ROADMAP.md section C), and the
+# card's LeNet-STN epoch at 0.05 is printed beside the others.  The first
+# batch card against CPU within LENET_RTOL; LENET_CARD_RUNS card epochs and
+# one CPU epoch, each from mx.random seeded with LENET_SEED, each one's
+# held-out accuracy must rise by LENET_MIN_GAIN over its initial weights'
+# (chance is 0.1; sound epochs on an H100 rose by 0.486 to 0.900 over six
+# readings, on the CPU by 0.695 and 0.902, and the card's epoch at lr 0.05
+# by -0.021: PERF.md section 5)
+LENET_ARGS = ["--network", "lenet", "--num-epochs", "1", "--num-examples", "2560",
+              "--lr", "0.01", "--disp-batches", "10"]
+LENET_RTOL, LENET_MIN_GAIN = 1e-5, 0.4
+LENET_CARD_RUNS, LENET_SEED = 3, 19
+# python_loss: the port's examples/module/python_loss.py; 8 epochs must pass
+# the JAX test's accuracy bar, and the first epoch's scores card vs CPU
+PYTHON_LOSS_MIN_ACC, PYTHON_LOSS_RTOL = 0.9, 1e-5
+# optimizers: the 13 of the slice, RMSProp centred, and multi_precision on
+# bf16 weights for SGD, NAG and Adam, each one step on AlexNet's parameters
+OPTIMIZER_RUNS = {
+    "nag": dict(momentum=0.9), "signum": dict(momentum=0.9), "sgld": {},
+    "dcasgd": dict(momentum=0.9), "adagrad": {}, "adadelta": {}, "adamax": {}, "nadam": {},
+    "rmsprop": {}, "rmsprop-centered": dict(centered=True), "ftrl": {}, "ftml": {},
+    "lbsgd": dict(momentum=0.9), "test": {},
+    "sgd-mp": dict(momentum=0.9, multi_precision=True),
+    "nag-mp": dict(momentum=0.9, multi_precision=True), "adam-mp": dict(multi_precision=True)}
+OPTIMIZER_RTOL = 1e-6
+# registry_ops: the CPU tests' cases, CTC at a DeepSpeech-like size (T, N,
+# C) and Deconvolution at an FCN-32s head (B, classes, H, W, kernel, stride)
+REGISTRY_CTC = (200, 16, 29)
+REGISTRY_DECONV = (1, 21, 16, 16, 64, 32)
+# the two large cases accumulate float32 rounding past the small cases'
+# tolerances: the FCN-32s deconvolution sums up to 86,016 terms an entry
+# (its data gradient: 21 channels x 64 x 64; on an H100 1.2e-4 apart
+# against a limit of 1.3e-5 on gradients up to 12.9, the CPU's own
+# float32 result 1.0e-4 from float64), CTC's gradient runs through 200
+# steps of log-space sums (the card 8.3e-6 apart against 1.5e-6).  Each is
+# held to a float64 run on the CPU, the card no further from it than
+# REGISTRY_LARGE_RATIO times the CPU's float32 run
+REGISTRY_LARGE = ("_contrib_CTCLoss#deepspeech", "Deconvolution#fcn32s")
+REGISTRY_LARGE_RATIO = 2.0
 
 
 def fail(msg):
@@ -1939,14 +2045,16 @@ def phase_frcnn_serve_bf16(kernels, net, dev, card):
     return launches, res
 
 
-def device_ops(run, tries=3, want=None):
+def device_ops(run, tries=5, want=None):
     """The names of the device operations of one ``run()``, from the
     profiler.  A profile that recorded no device operation at all, or none
     whose name holds ``want``, is taken again, up to ``tries`` times: the
-    profiler has returned an empty profile for a call whose kernels ran,
-    and one that held the call's PyTorch kernels but not the two NMS
-    kernels launched after them."""
+    profiler has returned an empty profile for a call whose kernels ran
+    (three in a row once, right after a profile that held them), and one
+    that held the call's PyTorch kernels but not the two NMS kernels
+    launched after them."""
     for _ in range(tries):
+        torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
@@ -1955,6 +2063,21 @@ def device_ops(run, tries=3, want=None):
         if ops and (want is None or any(want in o for o in ops)):
             break
     return ops
+
+
+def nms_scan_taken(kernels, run, n, expect):
+    """The survivor scan one NMS ``run()`` over ``n`` boxes took, which must
+    be ``expect``: the C entry's launch rule (``kernels.nms_scan``) names
+    it, and the profiler's device operations, where they name an NMS scan,
+    must name that one alone.  -> (scan, device ops or the reason there are
+    none)."""
+    scan = kernels.nms_scan(n)
+    ops = device_ops(run, want="nms_scan_kernel")
+    seen = {("global" if "global" in o else "staged") for o in ops if "nms_scan_kernel" in o}
+    if scan != expect or seen and seen != {scan}:
+        fail("nms at N=%d did not run the %s scan alone: the launch rule took %s, the "
+             "device ran %s" % (n, expect, scan, ops))
+    return scan, ops if seen else "none recorded (the profiler returned %s)" % (ops,)
 
 
 def nms_at_train_size(kernels, calls):
@@ -1973,9 +2096,7 @@ def nms_at_train_size(kernels, calls):
     ms = time_ms(lambda: k.wrapper(*args, **kw), 20)
     plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
     bound_ms, bound_by = bound(*work("nms_alive", args, k.wrapper(*args, **kw)))
-    ops = device_ops(lambda: k.wrapper(*args, **kw), want="nms_scan_kernel")
-    if not any("nms_scan_kernel" in o and "global" not in o for o in ops):
-        fail("nms at N=%d did not run the staged scan: %s" % (n, ops))
+    _, ops = nms_scan_taken(kernels, lambda: k.wrapper(*args, **kw), n, "staged")
     say("kernel nms_alive at the frcnn train size: N %d, %d words, %.4f ms (plain %.4f ms), "
         "bound %.6f ms by %s, bit-identical over %d calls; device ops %s"
         % (n, words, ms, plain_ms, bound_ms, bound_by, len(calls), ops))
@@ -2292,11 +2413,7 @@ def nms_at_ssd_sizes(kernels, calls):
         plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
         alive = k.wrapper(*args, **kw)
         bound_ms, bound_by = bound(*work("nms_alive", args, alive))
-        ops = device_ops(lambda: k.wrapper(*args, **kw), want="nms_scan_kernel")
-        ran_global = any("nms_scan_kernel_global" in o for o in ops)
-        ran_staged = any("nms_scan_kernel" in o and "global" not in o for o in ops)
-        if (scan == "global") != ran_global or (scan == "staged") != ran_staged:
-            fail("nms at N=%d did not run the %s scan alone: %s" % (n, scan, ops))
+        _, ops = nms_scan_taken(kernels, lambda: k.wrapper(*args, **kw), n, scan)
         # the device time of each of the two kernels
         split = {"mask": "not measured", "scan": "not measured"}
         prof = device_profile(lambda: k.wrapper(*args, **kw), reps=3, top=4)
@@ -2457,9 +2574,7 @@ def nms_at_decode(kernels, calls):
     plain_ms = time_ms(lambda: k.plain(*args, **kw), 3)
     alive = k.wrapper(*args, **kw)
     bound_ms, bound_by = bound(*work("nms_alive", args, alive))
-    ops = device_ops(lambda: k.wrapper(*args, **kw), want="nms_scan_kernel")
-    if not any("nms_scan_kernel" in o and "global" not in o for o in ops):
-        fail("nms at the decode's N=%d did not run the staged scan: %s" % (n, ops))
+    _, ops = nms_scan_taken(kernels, lambda: k.wrapper(*args, **kw), n, "staged")
     say("kernel nms_alive at the decode size: B %d, N %d, %d valid and %d kept, %.4f ms "
         "(plain %.4f ms), bound %.6f ms by %s, bit-identical over %d calls; device ops %s" % (
             B, n, int(args[1].sum()), int(alive.sum()), ms, plain_ms, bound_ms, bound_by,
@@ -4107,6 +4222,598 @@ def phase_imperative_resnet(kernels, dev, card):
     return launches, res
 
 
+# -- slice 19: the image-classification recipes, the python loss, the
+# optimizers and the rest of the operator registry -----------------------------
+
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+class TimedIter:
+    """A data iterator that notes the time (after a device synchronisation)
+    each time a batch is asked for: the gaps are the batches' times."""
+
+    def __init__(self, it, marks, dev=None):
+        self.it, self.marks = it, marks
+        self.sync = dev is None or dev.type == "cuda"
+        self.batch_size = it.batch_size
+        self.provide_data, self.provide_label = it.provide_data, it.provide_label
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.sync:
+            torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        return next(self.it)
+
+    def reset(self):
+        self.it.reset()
+
+
+class SameKeepMasks:
+    """Every Dropout call of the port's registry takes ``masks[k % len(masks)]``
+    at its k-th call on a device (counted per device type): a card run and a
+    CPU run of the same steps drop the same units.  Dropout stays on."""
+
+    def __init__(self, masks):
+        from mxnet_tpu_torch.ops import registry
+
+        self.masks, self.calls = masks, {}
+        self.opdef = registry.get("Dropout")
+        self.fn = self.opdef.fn
+
+    def __enter__(self):
+        fn, masks, calls = self.fn, self.masks, self.calls
+
+        def dropout(data, *, p=0.5, axes=(), training=False, keep=None, generator=None):
+            if not training:
+                return data
+            k = calls.get(data.device.type, 0)
+            calls[data.device.type] = k + 1
+            return fn(data, p=p, axes=axes, training=True,
+                      keep=masks[k % len(masks)].to(data.device))
+
+        self.opdef.fn = dropout
+        return self
+
+    def __exit__(self, *exc):
+        self.opdef.fn = self.fn
+
+
+def flat_params(mod):
+    """A Module's parameters as one float64 CPU vector, in name order."""
+    arg = mod.get_params()[0]
+    return torch.cat([arg[k].detach().double().cpu().reshape(-1) for k in sorted(arg)])
+
+
+def rel(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
+
+
+def first_steps_card_vs_cpu(sym, shape, batches, sgd, init, dev, masks=None, start=None,
+                            dtype=torch.float32, card_only=0):
+    """``len(batches)`` Module steps (training forward, backward, the fit
+    harness's SGD through a ``device`` KVStore, as fit.fit runs them) on the
+    card and on the CPU, both Modules bound in ``dtype``, from the same
+    initial weights (``start``, else the card's draw of ``init``) on the same
+    batches (with the same keep masks); then ``card_only`` more steps of the
+    last batch on the card alone: -> ([(card loss, CPU loss)], (card's,
+    CPU's first update as float64 CPU vectors), the initial weights by
+    name, [the card's further losses])."""
+    from mxnet_tpu_torch import kvstore
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.module import Module
+
+    cpu = torch.device("cpu")
+    mods = []
+    old_dtype = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)  # Module.bind makes its tensors in the default dtype
+    try:
+        for d in (dev, cpu):
+            mod = Module(sym, device=d)
+            mod.bind(data_shapes=[("data", shape)],
+                     label_shapes=[("softmax_label", (shape[0],))])
+            if start is None:
+                mod.init_params(init)
+                start = {k: v.detach().cpu().clone() for k, v in mod.get_params()[0].items()}
+            else:
+                mod.init_params(arg_params=start)
+            mod.init_optimizer(kvstore=kvstore.create("device"), optimizer="sgd",
+                               optimizer_params=dict(sgd))
+            mods.append(mod)
+        w0 = torch.cat([start[k].double().reshape(-1) for k in sorted(start)])
+        losses, upd, further = [], None, []
+        with SameKeepMasks(masks or []):
+            for i, (x, y) in enumerate(batches):
+                pair = []
+                for d, mod in zip((dev, cpu), mods):
+                    mod.forward(DataBatch([x.to(d)], [y.to(d)]), is_train=True)
+                    mod.backward()
+                    pair.append(cross_entropy(mod, y.to(d)))
+                    mod.update()
+                losses.append(tuple(pair))
+                if i == 0:
+                    upd = (flat_params(mods[0]) - w0, flat_params(mods[1]) - w0)
+            x, y = batches[-1]
+            for _ in range(card_only):
+                module_step(mods[0], DataBatch([x.to(dev)], [y.to(dev)]))
+                further.append(cross_entropy(mods[0], y.to(dev)))
+    finally:
+        torch.set_default_dtype(old_dtype)
+    if not all(math.isfinite(a) and math.isfinite(b) for a, b in losses):
+        fail("card vs CPU: a loss is not finite: %s" % losses)
+    return losses, upd, start, further
+
+
+def batch_times(marks, last=None):
+    """(median ms of the last ``last`` batches, all but the first without
+    it; the number of batches) from TimedIter's marks (one a batch, and one
+    more at the end)."""
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return statistics.median(gaps[-last:] if last else gaps[1:]), len(gaps)
+
+
+def alexnet_epoch(kernels, args, sym, shape):
+    """One fit.run epoch of train_imagenet.py's recipe (``args``) on the
+    card, timed batch by batch -> (ms a batch over the last ALEXNET_TIMED,
+    seconds, peak GiB, ported-kernel launch counts, the Module, whether its
+    weights are finite)."""
+    from mxnet_tpu_torch.examples.image_classification.common import data, fit
+
+    marks = []
+
+    def loader(a, kv):
+        train, val = data.get_rec_iter(a, kv)
+        return TimedIter(train, marks), val
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = fit.run(args, sym, loader)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, n_batches = batch_times(marks, ALEXNET_TIMED)
+    if n_batches != 50:
+        fail("imagenet alexnet: %d batches in the epoch, not 50" % n_batches)
+    finite = all(bool(torch.isfinite(v).all()) for v in model.get_params()[0].values())
+    return ms, seconds, peak, launches, model, finite
+
+
+def phase_imagenet_alexnet(kernels, dev, card):
+    """train_imagenet.py --network alexnet --benchmark 1 through the port's
+    fit.fit: see ALEXNET_ARGS.  First the card against the CPU on the first
+    two batches from the same Xavier weights and keep masks, through
+    ``Module`` and the ``device`` KVStore as fit.fit runs them, in float32
+    and in float64 (see ALEXNET_LOSS_RTOL), each card run then going on
+    alone for ALEXNET_FURTHER steps (the losses of the divergence); then the
+    recipe's epoch of 50 synthetic batches on the card, and the same epoch
+    at ALEXNET_FINITE_LR, whose weights stay finite (ms a batch and img/s
+    over the last 40, peak memory; one profiled step of the finite run), no
+    ported kernel launched.  -> (launch counts, report)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+    from mxnet_tpu_torch.examples.image_classification.common import data, fit
+    from mxnet_tpu_torch.examples.image_classification.symbols import alexnet
+
+    say("imagenet alexnet card: %s" % card_line())
+    args = train_imagenet.make_parser().parse_args(ALEXNET_ARGS)
+    sym = alexnet.get_symbol(**vars(args))
+    shape = (args.batch_size,) + tuple(int(v) for v in args.image_shape.split(","))
+    arg_shapes = sym.infer_shape(data=shape)[0]
+    n_params = sum(math.prod(s) for n, s in zip(sym.list_arguments(), arg_shapes)
+                   if n not in ("data", "softmax_label"))
+    with mx.cpu():
+        it = data.SyntheticDataIter(args.num_classes, shape, 2)
+    batches = [(b.data[0], b.label[0]) for b in it]
+    gen = torch.Generator().manual_seed(SEED + 190)
+    masks = [torch.rand((args.batch_size, 4096), generator=gen) < 0.5 for _ in range(4)]
+    sgd = dict(learning_rate=args.lr, momentum=args.mom, wd=args.wd)
+    t0 = time.perf_counter()
+    losses, (u_card, u_cpu), start, further = first_steps_card_vs_cpu(
+        sym, shape, batches, sgd, fit.make_initializer(args.initializer), dev, masks,
+        card_only=ALEXNET_FURTHER)
+    losses64, (u64_card, u64_cpu), _, further64 = first_steps_card_vs_cpu(
+        sym, shape, batches, sgd, None, dev, masks, start=start, dtype=torch.float64,
+        card_only=ALEXNET_FURTHER)
+    loss_rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in losses]
+    loss64_rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in losses64]
+    upd_rel, upd64_rel = rel(u_card, u_cpu), rel(u64_card, u64_cpu)
+    err_card, err_cpu = rel(u_card, u64_cpu), rel(u_cpu, u64_cpu)
+    card_vs_cpu = dict(losses=losses, loss_rel=loss_rel, update_rel=upd_rel,
+                       losses_float64=losses64, loss_rel_float64=loss64_rel,
+                       update_rel_float64=upd64_rel, fp32_update_error_card=err_card,
+                       fp32_update_error_cpu=err_cpu,
+                       card_further_losses=further, card_further_losses_float64=further64)
+    say("imagenet alexnet card vs CPU (%.1f s): %s" % (time.perf_counter() - t0,
+                                                         json.dumps(card_vs_cpu)))
+    if loss_rel[0] > ALEXNET_LOSS_RTOL or loss_rel[1] > ALEXNET_LOSS2_RTOL \
+            or max(loss64_rel) > ALEXNET_FLOAT64_RTOL or upd64_rel > ALEXNET_FLOAT64_RTOL \
+            or err_card > ALEXNET_FP32_ERROR_RATIO * err_cpu:
+        fail("imagenet alexnet card vs CPU: %s" % json.dumps(card_vs_cpu))
+    ms, seconds, peak, launches, model, finite = alexnet_epoch(kernels, args, sym, shape)
+    if any(launches.values()):
+        fail("the imagenet alexnet path launched %s" % launches)
+    finite_args = train_imagenet.make_parser().parse_args(
+        ALEXNET_ARGS + ["--lr", str(ALEXNET_FINITE_LR)])
+    ms_f, seconds_f, peak_f, launches_f, model_f, finite_f = alexnet_epoch(
+        kernels, finite_args, sym, shape)
+    with mx.gpu(0), mx.full_fp32():
+        it = data.SyntheticDataIter(args.num_classes, shape, 1)
+        batch = next(it)
+        prof = device_profile(lambda: module_step(model_f, batch), reps=1, top=6)
+        loss_f = cross_entropy(model_f, batch.label[0])
+    if any(launches_f.values()) or not finite_f or not loss_f < losses[0][0]:
+        fail("imagenet alexnet at lr %g: launches %s, weights finite %s, loss %.4f -> %.4f"
+             % (ALEXNET_FINITE_LR, launches_f, finite_f, losses[0][0], loss_f))
+    res = dict(params=n_params, epoch_s=seconds, batch_ms=ms,
+               img_per_s=args.batch_size / ms * 1e3, peak_gib=peak,
+               weights_finite_after=finite,
+               finite_lr=dict(lr=ALEXNET_FINITE_LR, epoch_s=seconds_f, batch_ms=ms_f,
+                              img_per_s=args.batch_size / ms_f * 1e3, peak_gib=peak_f,
+                              loss_first=losses[0][0], loss_after=loss_f),
+               card_vs_cpu=card_vs_cpu, profile=prof)
+    say("imagenet alexnet (train_imagenet.py --network alexnet --benchmark 1, fit.fit) on %s: "
+        "%d parameters, batch %d at %s; at the defaults (lr %g) 50 batches in %.1f s, median "
+        "%.2f ms a batch over the last %d, %.1f img/s, peak memory %.2f GiB, weights finite "
+        "after: %s (the card's losses on the repeated batch: %s); at lr %g 50 batches in "
+        "%.1f s, median %.2f ms a batch, %.1f img/s, peak memory %.2f GiB, loss %.4f -> %.4f; "
+        "ported kernel launches a batch 0; %s device kernels a batch, device busy %s ms, idle "
+        "share %s" % (card, n_params, args.batch_size, shape[1:], args.lr, seconds, ms,
+                      ALEXNET_TIMED, res["img_per_s"], peak, finite,
+                      [losses[0][0], losses[1][0]] + further, ALEXNET_FINITE_LR, seconds_f,
+                      ms_f, res["finite_lr"]["img_per_s"], peak_f, losses[0][0], loss_f,
+                      prof.get("kernels_per_call"), prof.get("device_busy_ms"),
+                      prof.get("idle_share")))
+    say("imagenet alexnet device groups (lr %g): %s" % (ALEXNET_FINITE_LR, json.dumps(prof)))
+    return launches, res
+
+
+def accuracy_of(mod, it):
+    return dict(mod.score(it, "acc"))["accuracy"]
+
+
+def lenet_epoch(kernels, args, sym, dev):
+    """One fit.run epoch of train_mnist.py's recipe (``args``) from
+    mx.random seeded with LENET_SEED (the initial weights) and fresh
+    iterators (the shuffle's own generator) -> (held-out accuracy of the
+    initial weights, after the epoch; ms a batch; batches; seconds; the
+    epoch's ported-kernel launch counts; the Module; the initial stn_loc
+    weights)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples.image_classification import train_mnist
+    from mxnet_tpu_torch.examples.image_classification.common import fit
+    from mxnet_tpu_torch.module import Module
+
+    ctx = mx.gpu(0) if dev.type == "cuda" else mx.cpu()
+    with mx.cpu():
+        train, val = train_mnist.get_mnist_iter(args, None)
+    with ctx, mx.full_fp32():
+        mx.random.seed(LENET_SEED)
+        start = Module(sym, device=dev)
+        start.bind(data_shapes=train.provide_data, label_shapes=train.provide_label)
+        start.init_params(fit.make_initializer(args.initializer))
+        before = accuracy_of(start, val)
+        loc0 = {k: v.clone() for k, v in start.get_params()[0].items() if k.startswith("stn_")}
+        mx.random.seed(LENET_SEED)
+    marks = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model = fit.run(args, sym, lambda a, kv: (TimedIter(train, marks, dev), val))
+    seconds = time.perf_counter() - t0
+    launches = counts(kernels)
+    with ctx, mx.full_fp32():
+        after = accuracy_of(model, val)
+    ms, n_batches = batch_times(marks)
+    return (before, after), ms, n_batches, seconds, launches, model, loc0
+
+
+def phase_mnist_lenet_stn(kernels, dev, card):
+    """lenet.get_symbol(add_stn=True) through fit.fit with train_mnist.py's
+    synthetic stand-in: see LENET_ARGS.  The first batch on the card against
+    the CPU (loss and update within LENET_RTOL); LENET_CARD_RUNS epochs on the
+    card and one on the CPU from the same seed, each one's held-out accuracy
+    above its initial weights' by LENET_MIN_GAIN; the transformer's stn_loc
+    weight and bias moved; one card epoch at the script's lr (0.05) reported;
+    no ported kernel launched.  -> (launch counts of the first card epoch,
+    report)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples.image_classification import train_mnist
+    from mxnet_tpu_torch.examples.image_classification.common import fit
+    from mxnet_tpu_torch.examples.image_classification.symbols import lenet
+
+    say("mnist lenet-stn card: %s" % card_line())
+    args = train_mnist.make_parser().parse_args(LENET_ARGS)
+    sym = lenet.get_symbol(num_classes=args.num_classes, add_stn=True)
+    shape = (args.batch_size, 1, 28, 28)
+    with mx.cpu():
+        train, _ = train_mnist.get_mnist_iter(args, None)
+    first = next(iter(train))
+    sgd = dict(learning_rate=args.lr, momentum=args.mom, wd=args.wd)
+    losses, (u_card, u_cpu), _, _ = first_steps_card_vs_cpu(
+        sym, shape, [(first.data[0], first.label[0])], sgd,
+        fit.make_initializer(args.initializer), dev)
+    loss_rel = abs(losses[0][0] - losses[0][1]) / abs(losses[0][1])
+    upd = rel(u_card, u_cpu)
+    say("mnist lenet-stn card vs CPU, first batch: loss %s (relative %.3g), update relative "
+        "%.3g" % (losses[0], loss_rel, upd))
+    if loss_rel > LENET_RTOL or upd > LENET_RTOL:
+        fail("mnist lenet-stn card vs CPU: loss %.3g, update %.3g" % (loss_rel, upd))
+    runs = []
+    for i in range(LENET_CARD_RUNS):
+        acc, ms, n_batches, seconds, run_launches, model, loc0 = lenet_epoch(
+            kernels, args, sym, dev)
+        if i == 0:
+            launches, ms0, n0, seconds0 = run_launches, ms, n_batches, seconds
+            loc = model.get_params()[0]
+            moved = {k: float((loc[k] - v).abs().max()) for k, v in loc0.items()}
+        if any(run_launches.values()):
+            fail("the mnist lenet-stn path launched %s" % run_launches)
+        runs.append(acc)
+    cpu_args = train_mnist.make_parser().parse_args(LENET_ARGS + ["--ctx", "cpu"])
+    cpu_acc = lenet_epoch(kernels, cpu_args, sym, torch.device("cpu"))[0]
+    default_args = train_mnist.make_parser().parse_args(
+        [v for v in LENET_ARGS if v not in ("--lr", str(args.lr))])
+    default_acc = lenet_epoch(kernels, default_args, sym, dev)[0]
+    readings = dict(card=runs, cpu=cpu_acc, card_at_default_lr=default_acc)
+    say("mnist lenet-stn held-out accuracy (initial, after one epoch) from mx.random seed %d: "
+        "%s" % (LENET_SEED, json.dumps(readings)))
+    if not all(b >= a + LENET_MIN_GAIN for a, b in runs + [cpu_acc]):
+        fail("mnist lenet-stn: a held-out accuracy rose less than %.2f: %s"
+             % (LENET_MIN_GAIN, json.dumps(readings)))
+    if not all(m > 0 for m in moved.values()):
+        fail("mnist lenet-stn: the transformer did not move: %s" % moved)
+    res = dict(batches=n0, epoch_s=seconds0, batch_ms=ms0, accuracy=runs[0],
+               accuracy_readings=readings, stn_moved=moved,
+               card_vs_cpu=dict(loss=losses[0], loss_rel=loss_rel, update_rel=upd))
+    say("mnist lenet-stn (train_mnist.py's stand-in data, lenet add_stn, fit.fit) on %s: "
+        "card vs CPU loss %s (relative %.3g), update relative %.3g; %d batches of %d in "
+        "%.1f s, median %.2f ms a batch; held-out accuracy %.3f -> %.3f; stn_loc moved by "
+        "%s; ported kernel launches 0" % (card, losses[0], loss_rel, upd, n0,
+                                          args.batch_size, seconds0, ms0, runs[0][0],
+                                          runs[0][1], moved))
+    return launches, res
+
+
+def phase_python_loss(kernels, dev, card):
+    """The port's examples/module/python_loss.py on the card: main(epochs=8)
+    reaches accuracy > PYTHON_LOSS_MIN_ACC (the JAX test's bar); one epoch on
+    the card and one on the CPU give the same scores on every sample within
+    PYTHON_LOSS_RTOL; no ported kernel launched.  -> (launch counts,
+    report)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples.module import python_loss
+
+    say("python loss card: %s" % card_line())
+    scores = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx, mx.full_fp32():
+            mod, it = python_loss.train(epochs=1)
+            it.reset()
+            outs = []
+            for b in it:
+                mod.forward(b, is_train=False)
+                outs.append(mod.get_outputs()[0].detach().cpu())
+            scores[ctx.device_type] = torch.cat(outs)
+    diff = rel(scores["gpu"], scores["cpu"])
+    if diff > PYTHON_LOSS_RTOL:
+        fail("python loss: the first epoch's scores on the card are %.3g from the CPU's" % diff)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with mx.gpu(0), mx.full_fp32():
+        acc = python_loss.main(epochs=8)
+    seconds = time.perf_counter() - t0
+    launches = counts(kernels)
+    if any(launches.values()):
+        fail("the python loss path launched %s" % launches)
+    if not acc > PYTHON_LOSS_MIN_ACC:
+        fail("python loss: accuracy %.3f after 8 epochs" % acc)
+    say("python loss (SequentialModule: MLP Module + PythonLossModule hinge) on %s: first "
+        "epoch's scores card vs CPU %.3g relative; 8 epochs in %.1f s, accuracy %.3f; "
+        "ported kernel launches 0" % (card, diff, seconds, acc))
+    return launches, dict(card_vs_cpu=diff, epochs8_s=seconds, accuracy=acc)
+
+
+def phase_optimizers(kernels, dev, card):
+    """One gradient (drawn once) applied to AlexNet's parameter set under each
+    optimizer of OPTIMIZER_RUNS on the card and on the CPU: the weights
+    within OPTIMIZER_RTOL of the CPU's as a whole, the update's own distance
+    reported (LBSGD's layer-wise rate moves a weight by ~1e-5 of itself, so
+    the last-bit rounding of the new weights, after norms summed in another
+    order, is a large share of that update); SGLD's noise drawn once on the
+    host and given to both; then ms a step on the card (median of 3 more
+    steps).  -> report."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.examples.image_classification.symbols import alexnet
+
+    say("optimizers card: %s" % card_line())
+    sym = alexnet.get_symbol(num_classes=1000)
+    shapes = [(n, s) for n, s in zip(sym.list_arguments(),
+                                     sym.infer_shape(data=(128, 3, 224, 224))[0])
+              if n not in ("data", "softmax_label")]
+    gen = torch.Generator().manual_seed(SEED + 191)
+    w0 = [torch.randn(s, generator=gen) * 0.05 for _, s in shapes]
+    g0 = [torch.randn(s, generator=gen) for _, s in shapes]
+    z0 = [torch.randn(s, generator=gen) for _, s in shapes]
+    names = dict(enumerate(n for n, _ in shapes))
+    rows = {}
+    for key, kw in OPTIMIZER_RUNS.items():
+        name = key.split("-")[0]
+        mp = kw.get("multi_precision", False)
+        dtype = torch.bfloat16 if mp else torch.float32
+        after, ms = {}, None
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            opt = optimizer.create(name, learning_rate=0.01, wd=1e-4, rescale_grad=1 / 128,
+                                   param_idx2name=names, **kw)
+            opt.set_wd_mult({})
+            if name == "sgld":
+                z = [t.to(d, dtype) for t in z0]
+                opt.noise_source = lambda i, w, z=z: z[i]
+            upd = optimizer.get_updater(opt)
+            w = [t.to(d, dtype, copy=True) for t in w0]
+            g = [t.to(d, dtype) for t in g0]
+            for i in range(len(w)):
+                upd(i, g[i], w[i])
+            after[where] = torch.cat([t.double().cpu().reshape(-1) for t in w])
+            if where == "card":
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for i in range(len(w)):
+                        upd(i, g[i], w[i])
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms = statistics.median(times)
+        start = torch.cat([t.to(dtype).double().reshape(-1) for t in w0])
+        w_rel = rel(after["card"], after["cpu"])
+        u_rel = rel(after["card"] - start, after["cpu"] - start)
+        rows[key] = dict(weights_rel=w_rel, update_rel=u_rel, step_ms=ms)
+        if w_rel > OPTIMIZER_RTOL:
+            fail("optimizer %s: the card's weights are %.3g from the CPU's" % (key, w_rel))
+    say("optimizers on %s, AlexNet's %d tensors (%d values), one gradient: card vs CPU "
+        "(weights rel, update rel) and ms a step: %s" % (
+            card, len(shapes), sum(t.numel() for t in w0), json.dumps(rows)))
+    return rows
+
+
+def sign_free(case, outs):
+    """The factor outputs of ``gelqf`` / ``syevd`` with each row of Q or U
+    (and the matching column of L) turned to a positive first nonzero
+    entry: a solver may choose either sign."""
+    if case.op == "_linalg_gelqf":
+        l, q = outs
+        s = torch.sign(q[..., :1])
+        return [l * s.transpose(-1, -2), q * s]
+    if case.op == "_linalg_syevd":
+        u, lam = outs
+        return [u * torch.sign(u[..., :1]), lam]
+    return outs
+
+
+def sign_free_cotangents(case, outs, cts):
+    """Cotangents whose gradient a row's sign does not change: for the
+    factors, the gradient of Σ c·x² over the factor outputs."""
+    if case.op in ("_linalg_gelqf", "_linalg_syevd"):
+        return [2 * c * o.detach() for c, o in zip(cts, outs)]
+    return cts
+
+
+def run_case(case, fn, dev, dtype=None):
+    """A registry case on ``dev`` (its inputs in ``dtype`` where given) ->
+    (outputs, gradients of Σ outputs · cotangents with respect to its
+    differentiable inputs), on the CPU."""
+    import mxnet_tpu_torch as mx
+
+    ins = [torch.from_numpy(a.copy()).to(dev, dtype) for a in case.inputs]
+    for i in case.grad:
+        ins[i].requires_grad_()
+    ctx = mx.cpu() if dev.type == "cpu" else mx.gpu(0)
+    with ctx, mx.full_fp32():
+        res = fn(*ins, **case.attrs)
+        outs = list(res) if isinstance(res, (tuple, list)) else [res]
+        grads = []
+        if case.grad:
+            rng = np.random.RandomState(len(case.inputs) + sum(map(ord, case.op)))
+            cts = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32))
+                   .to(dev, o.dtype) for o in outs]
+            cts = sign_free_cotangents(case, outs, cts)
+            grads = torch.autograd.grad(outs, [ins[i] for i in case.grad], cts,
+                                        allow_unused=True)
+            grads = [torch.zeros(case.inputs[i].shape) if gr is None else gr.detach().cpu()
+                     for i, gr in zip(case.grad, grads)]
+    return [o.detach().cpu() for o in sign_free(case, outs)], grads
+
+
+def phase_registry_ops(kernels, dev, card):
+    """Each case of ``test_utils.registry_cases`` (the 55 operators this slice
+    ports, at the CPU tests' shapes), then CTC at REGISTRY_CTC and
+    Deconvolution at REGISTRY_DECONV: forward and gradients on the card
+    against the CPU port, within the CPU tests' tolerances (the gradients at
+    atol times their largest magnitude; the large CTC and deconvolution
+    against float64, REGISTRY_LARGE); gelqf and syevd up to each row's sign.  Every miss is
+    listed before the phase fails.  -> report."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.test_utils import OpCase, register_numpy_softmax, registry_cases
+
+    say("registry ops card: %s" % card_line())
+    register_numpy_softmax(mx)
+    cases = registry_cases()
+    rng = np.random.RandomState(SEED + 192)
+    t, n, c = REGISTRY_CTC
+    lengths = rng.randint(t // 2, t + 1, n).astype(np.float32)
+    labels = rng.randint(1, c, (n, 40)).astype(np.float32)
+    label_len = rng.randint(10, 41, n).astype(np.float32)
+    cases["_contrib_CTCLoss#deepspeech"] = OpCase(
+        "_contrib_CTCLoss", [rng.standard_normal((t, n, c)).astype(np.float32), labels,
+                             lengths, label_len],
+        dict(use_data_lengths=True, use_label_lengths=True), grad=(0,), rtol=1e-4)
+    b, ch, h, w, k, s = REGISTRY_DECONV
+    cases["Deconvolution#fcn32s"] = OpCase(
+        "Deconvolution", [rng.standard_normal((b, ch, h, w)).astype(np.float32),
+                          (rng.standard_normal((ch, ch, k, k)) * 0.01).astype(np.float32)],
+        dict(kernel=(k, k), stride=(s, s), num_filter=ch), grad=(0, 1))
+    kernels.reset_launches()
+    cpu = torch.device("cpu")
+    worst, ms, misses = {}, {}, []
+    for key in sorted(cases):
+        case = cases[key]
+        fn = registry.get(case.op).fn
+        ref, ref_g = run_case(case, fn, cpu)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, got_g = run_case(case, fn, dev)
+        ms[key] = (time.perf_counter() - t0) * 1e3
+        pairs = [("output %d" % i, g, r) for i, (g, r) in enumerate(zip(got, ref))]
+        pairs += [("d/d input %d" % i, g, r) for i, (g, r) in zip(case.grad, zip(got_g, ref_g))]
+        if key in REGISTRY_LARGE:
+            truth, truth_g = run_case(case, fn, cpu, torch.float64)
+            for (what, g, r), t in zip(pairs, truth + list(truth_g)):
+                e_card = float((g.double() - t).abs().max())
+                e_cpu = float((r.double() - t).abs().max())
+                worst["%s %s (card, CPU) from float64" % (key, what)] = (e_card, e_cpu)
+                if e_card > REGISTRY_LARGE_RATIO * e_cpu + 1e-30:
+                    misses.append("%s %s: %.3g from float64 against the CPU's %.3g"
+                                  % (key, what, e_card, e_cpu))
+            continue
+        for what, g, r in pairs:
+            if tuple(g.shape) != tuple(r.shape):
+                misses.append("%s %s: shape %s against %s" % (key, what, tuple(g.shape),
+                                                            tuple(r.shape)))
+            elif case.exact:
+                if not torch.equal(g.to(r.dtype), r):
+                    misses.append("%s %s: not equal to the CPU's" % (key, what))
+            else:
+                atol = case.atol * (max(1.0, float(r.abs().max())) if what[0] == "d" else 1.0)
+                err = float((g.float() - r.float()).abs().max())
+                worst["%s %s" % (key, what)] = err
+                if not torch.allclose(g.float(), r.float(), rtol=case.rtol, atol=atol):
+                    misses.append("%s %s: largest difference %.3g (rtol %g, atol %.3g)"
+                                  % (key, what, err, case.rtol, atol))
+    if misses:
+        fail("registry ops on the card against the CPU: %d misses: %s"
+             % (len(misses), "; ".join(misses)))
+    launches = counts(kernels)
+    if any(launches.values()):
+        fail("the registry ops launched %s" % launches)
+    say("registry ops on %s: %d cases of %d operators, forward and gradients card vs CPU "
+        "within the CPU tests' tolerances (the large CTC and deconvolution against float64); "
+        "largest "
+        "differences %s; ms a case (forward and backward, first call) %s" % (
+            card, len(cases), len({c.op for c in cases.values()}),
+            json.dumps({k: v for k, v in worst.items() if v}),
+            json.dumps({k: round(v, 2) for k, v in ms.items()})))
+    return dict(cases=len(cases), ops=len({c.op for c in cases.values()}))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -4164,6 +4871,18 @@ def main():
     say("module: %s" % json.dumps({"mlp": module_mlp_res, "cifar": module_cifar_res}))
     lstm_launches, lstm_res = phase("lstm_bucketing", phase_lstm_bucketing, kernels, dev, name)
     say("lstm_bucketing: %s" % json.dumps(lstm_res))
+    alexnet_launches, alexnet_res = phase("imagenet_alexnet", phase_imagenet_alexnet, kernels,
+                                          dev, name)
+    lenet_launches, lenet_res = phase("mnist_lenet_stn", phase_mnist_lenet_stn, kernels, dev,
+                                      name)
+    python_loss_launches, python_loss_res = phase("python_loss", phase_python_loss, kernels,
+                                                  dev, name)
+    optimizer_res = phase("optimizers", phase_optimizers, kernels, dev, name)
+    registry_res = phase("registry_ops", phase_registry_ops, kernels, dev, name)
+    say("image classification: %s" % json.dumps({
+        "alexnet": alexnet_res, "lenet_stn": lenet_res, "python_loss": python_loss_res,
+        "optimizers": optimizer_res, "registry_ops": registry_res}))
+    torch.cuda.empty_cache()
     ssd_serve_launches, ssd_nms, ssd_serve = phase("ssd_serve", phase_ssd_serve, kernels, dev,
                                                    name)
     ssd_train_launches, ssd_train = phase("ssd_train", phase_ssd_train, kernels, dev, name)
@@ -4190,7 +4909,8 @@ def main():
                 "frcnn_train_bf16": frcnn_bf16_launches,
                 "frcnn_serve_bf16": frcnn_serve_bf16_launches,
                 "module_mlp": module_mlp_launches, "module_cifar": module_cifar_launches,
-                "lstm_bucketing": lstm_launches,
+                "lstm_bucketing": lstm_launches, "imagenet_alexnet": alexnet_launches,
+                "mnist_lenet_stn": lenet_launches, "python_loss": python_loss_launches,
                 **ssd_serve_launches, **ssd_train_launches,
                 "predictor_resnet": predictor_resnet_launches,
                 "serve_engine": serve_engine_launches,

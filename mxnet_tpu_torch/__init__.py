@@ -22,7 +22,11 @@ imperative frontend: ``nd`` (NDArray and the registry's operators),
 ``Parameter`` / ``Trainer``, used as ``import mxnet_tpu_torch as mx``; and
 the LSTM bucketing language model: the fused ``RNN`` op, ``rnn`` (the
 cells, ``BucketSentenceIter``), ``mod.BucketingModule``, Adam and
-``metric.Perplexity``.
+``metric.Perplexity``; the whole operator registry with ``operator``
+(custom ops), ``mod.SequentialModule`` / ``PythonModule``, the other
+optimizers, metrics, initializers and schedules, the one-process
+``kvstore``, and ``examples.image_classification`` (``train_imagenet``,
+``train_mnist``).
 """
 import importlib
 
@@ -32,7 +36,8 @@ from .context import (Context, cpu, current_context, full_fp32, gpu, num_gpus,
 __all__ = ["Context", "cpu", "current_context", "full_fp32", "gpu", "num_gpus",
            "resolve_device", "nd", "ndarray", "autograd", "random", "gluon", "init",
            "initializer", "optimizer", "symbol", "sym", "name", "attribute", "metric",
-           "lr_scheduler", "module", "mod", "rnn", "io", "callback", "model"]
+           "lr_scheduler", "module", "mod", "rnn", "io", "callback", "model", "kvstore",
+           "operator"]
 
 # submodules imported on first use: ``mx.nd``, ``mx.gluon``, ``mx.init``, ...
 _LAZY = {"nd": "ndarray", "sym": "symbol", "init": "initializer", "mod": "module"}

@@ -53,9 +53,10 @@ def node_call_attrs(node, generator, is_train):
     """The attributes a plan node's ``op.fn`` is called with: the one place
     that fills in the random stream (``generator``, for a stochastic node
     that names none), the mode (``training``), and, in training, asks an
-    op that updates auxiliary states for its batch statistics
-    (``output_mean_var``, the ``(out, mean, var)`` its ``aux_update``
-    reads).  Shared by ``Executor`` (real evaluation), calibration and
+    op that updates auxiliary states from its batch statistics
+    (BatchNorm's ``output_mean_var``, the ``(out, mean, var)`` its
+    ``aux_update`` reads; an op without the attribute updates them from its
+    output).  Shared by ``Executor`` (real evaluation), calibration and
     ``analysis._abstract_walk`` (meta tensors), so the abstract walk cannot
     drift from what runs."""
     names = node.op.attr_names
@@ -64,7 +65,7 @@ def node_call_attrs(node, generator, is_train):
         attrs["generator"] = generator
     if "training" in names and "training" not in attrs:
         attrs["training"] = is_train
-    if is_train and node.op.aux_update is not None:
+    if is_train and node.op.aux_update is not None and "output_mean_var" in names:
         attrs["output_mean_var"] = True
     return attrs
 

@@ -11,20 +11,24 @@ initializer's own seeded with 0), in float32 on that generator's device, and the
 generator gives the same values on the CPU and the card.  The global random
 state is never used.
 
-Ported: ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal``, ``Xavier``,
-``MSRAPrelu`` and ``LSTMBias`` (the LSTM cells' i2h bias).  The others
-(``Orthogonal``, ``Bilinear``, ``Mixed``, ``Load``, ``FusedRNN``) are
-ROADMAP A11.
+The initializers: ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal``,
+``Orthogonal``, ``Xavier``, ``MSRAPrelu``, ``Bilinear`` (an upsampling
+kernel), ``LSTMBias`` (the LSTM cells' i2h bias), ``FusedRNN`` (a fused RNN
+cell's packed parameters), ``Mixed`` (by name pattern) and ``Load`` (from
+saved arrays).
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as np
 import torch
 
 __all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "MSRAPrelu", "LSTMBias", "create", "register"]
+           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias", "FusedRNN", "Mixed",
+           "Load", "create", "register"]
 
 _INIT_REGISTRY = {}
 _ALIASES = {"zeros": "zero", "ones": "one"}
@@ -42,8 +46,8 @@ def create(name, *args, **kwargs):
         return name
     key = _ALIASES.get(name.lower(), name.lower())
     if key not in _INIT_REGISTRY:
-        raise NotImplementedError("initializer %r is not ported (ROADMAP A11); ported: %s"
-                                  % (name, sorted(_INIT_REGISTRY)))
+        raise ValueError("initializer %r is not registered (have %s)"
+                         % (name, sorted(_INIT_REGISTRY)))
     return _INIT_REGISTRY[key](*args, **kwargs)
 
 
@@ -132,12 +136,17 @@ class One(Initializer):
 
 @register
 class Constant(Initializer):
+    """``value``: a number, or a sequence that broadcasts to the array."""
+
     def __init__(self, value=0.0, generator=None):
         super().__init__(generator, value=value)
         self.value = value
 
     def _init_weight(self, _, arr):
-        self._fill(arr, float(self.value))
+        if isinstance(self.value, (list, tuple)):
+            self._fill(arr, torch.tensor(self.value, dtype=torch.float32).expand(arr.shape))
+        else:
+            self._fill(arr, float(self.value))
 
 
 @register
@@ -162,6 +171,29 @@ class Normal(Initializer):
 
     def _init_weight(self, _, arr):
         self._fill(arr, self._normal(arr.shape, self.sigma))
+
+
+@register
+class Orthogonal(Initializer):
+    """A scaled orthogonal matrix (reference initializer.py Orthogonal): the
+    left or right singular vectors (whichever has the weight's shape) of a
+    U(−1, 1) (``rand_type="uniform"``) or N(0, 1) draw of (out, in)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", generator=None):
+        super().__init__(generator, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        if self.rand_type == "uniform":
+            tmp = self._uniform((nout, nin), -1.0, 1.0)
+        else:
+            tmp = self._normal((nout, nin), 1.0)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        res = u if tuple(u.shape) == tuple(tmp.shape) else v
+        self._fill(arr, (self.scale * res).reshape(arr.shape))
 
 
 @register
@@ -205,6 +237,23 @@ class MSRAPrelu(Xavier):
 
 
 @register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel (reference initializer.py Bilinear), for
+    a Deconvolution weight (C, 1, k, k): ``(1 − |x/f − c|)·(1 − |y/f −
+    c|)``, f = ceil(k / 2), c = (2f − 1 − f % 2) / 2f."""
+
+    def _init_weight(self, _, arr):
+        shape = tuple(arr.shape)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(math.prod(shape))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))).astype(np.float32)
+        self._fill(arr, torch.from_numpy(weight.reshape(shape)))
+
+
+@register
 class LSTMBias(Initializer):
     """An LSTM cell's i2h bias (reference initializer.py LSTMBias): 0 but
     for the forget gate's quarter (the second of i, f, c, o), which is
@@ -219,3 +268,71 @@ class LSTMBias(Initializer):
         num_hidden = arr.shape[0] // 4
         out[num_hidden:2 * num_hidden] = self.forget_bias
         self._fill(arr, out)
+
+
+@register
+class FusedRNN(Initializer):
+    """A fused RNN cell's packed parameters (reference initializer.py
+    FusedRNN): ``init`` (an Initializer, or its ``dumps()``) over the whole
+    vector, ``Uniform(0.07)`` without one."""
+
+    def __init__(self, init=None, num_hidden=0, num_layers=0, mode="lstm",
+                 bidirectional=False, forget_bias=1.0, generator=None):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, generator=generator, **kwargs)
+        super().__init__(generator, init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional, forget_bias=forget_bias)
+        self._init = init
+
+    def _init_weight(self, desc, arr):
+        init = self._init if self._init is not None else Uniform(0.07, self.generator)
+        init._init_weight(desc, arr)
+
+
+class Mixed:
+    """The initializer of the first pattern (a regular expression) that a
+    parameter's name matches (reference initializer.py Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must have the same length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern. Add a '.*' pattern "
+                         "as fallback." % name)
+
+
+@register
+class Load:
+    """Values by name from a dict of arrays or an ``nd.save`` file (the
+    ``arg:`` / ``aux:`` prefixes dropped), ``default_init`` for the rest
+    (reference initializer.py Load)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .ndarray import load as nd_load
+            param = nd_load(param)
+        self.param = {name.replace("arg:", "").replace("aux:", ""): arr
+                      for name, arr in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            p = self.param[name]
+            if tuple(p.shape) != tuple(arr.shape):
+                raise ValueError("Parameter %s shape mismatch: %s vs %s"
+                                 % (name, tuple(p.shape), tuple(arr.shape)))
+            value = p._data if hasattr(p, "_data") else torch.as_tensor(np.asarray(p))
+            Initializer._fill(arr, value.to(arr.dtype))
+        elif self.default_init is None:
+            raise ValueError("Cannot init %s: not found and no default_init" % name)
+        else:
+            self.default_init(name, arr)

@@ -1,11 +1,15 @@
 """Learning-rate schedules (counterpart of ``mxnet_tpu/lr_scheduler.py``;
 reference python/mxnet/lr_scheduler.py): ``FactorScheduler`` and
-``MultiFactorScheduler``, which ``common/fit.py``'s ``lr_step_epochs`` builds.
+``MultiFactorScheduler`` (which ``common/fit.py``'s ``lr_step_epochs``
+builds), ``PolyScheduler`` and ``CosineScheduler``.
 A schedule maps the optimizer's update count to a learning rate on the
 host."""
 from __future__ import annotations
 
-__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler"]
+import math
+
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler", "PolyScheduler",
+           "CosineScheduler"]
 
 
 class LRScheduler:
@@ -62,3 +66,42 @@ class MultiFactorScheduler(LRScheduler):
             return self.get_warmup_lr(num_update)
         n = sum(1 for s in self.step if s <= num_update)
         return self.base_lr * (self.factor ** n)
+
+
+class PolyScheduler(LRScheduler):
+    """Polynomial decay from ``base_lr`` to ``final_lr`` at ``max_update``,
+    power ``pwr``, after the warm-up."""
+
+    def __init__(self, max_update, base_lr=0.01, pwr=2, final_lr=0.0, **kw):
+        super().__init__(base_lr=base_lr, **kw)
+        self.max_update = max_update
+        self.power = pwr
+        self.final_lr = final_lr
+        self.max_steps = max_update - self.warmup_steps
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        if num_update >= self.max_update:
+            return self.final_lr
+        frac = (num_update - self.warmup_steps) / max(self.max_steps, 1)
+        return self.final_lr + (self.base_lr - self.final_lr) * (1.0 - frac) ** self.power
+
+
+class CosineScheduler(LRScheduler):
+    """Cosine decay from ``base_lr`` to ``final_lr`` at ``max_update``, after
+    the warm-up."""
+
+    def __init__(self, max_update, base_lr=0.01, final_lr=0.0, **kw):
+        super().__init__(base_lr=base_lr, **kw)
+        self.max_update = max_update
+        self.final_lr = final_lr
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        if num_update >= self.max_update:
+            return self.final_lr
+        frac = (num_update - self.warmup_steps) / max(self.max_update - self.warmup_steps, 1)
+        return (self.final_lr
+                + (self.base_lr - self.final_lr) * (1 + math.cos(math.pi * frac)) / 2)

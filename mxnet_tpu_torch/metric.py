@@ -1,10 +1,12 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``; reference
 python/mxnet/metric.py): ``EvalMetric``, ``Accuracy``, ``TopKAccuracy``,
-``CrossEntropy``, ``Perplexity``, ``CompositeEvalMetric`` and ``create``,
-what ``Module.fit`` and ``Module.score`` use, and the detection gates'
-``VOCMApMetric`` (``examples/ssd/metric.py``).  An update reads its labels
-and predictions to the host (a synchronisation) and sums in numpy, as the
-JAX package's metrics do.  The other metrics are ROADMAP A11.
+``F1``, ``MCC``, ``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``,
+``NegativeLogLikelihood``, ``PearsonCorrelation``, ``Perplexity``,
+``Loss``, ``CustomMetric`` (and ``np``), ``CompositeEvalMetric`` and
+``create``, under the JAX package's registered names, and the detection
+gates' ``VOCMApMetric`` (``examples/ssd/metric.py``).  An update reads its
+labels and predictions to the host (a synchronisation) and sums in numpy,
+as the JAX package's metrics do.
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ import numpy
 
 import torch
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "Perplexity", "VOCMApMetric", "create", "register"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy", "F1", "MCC",
+           "MAE", "MSE", "RMSE", "CrossEntropy", "NegativeLogLikelihood",
+           "PearsonCorrelation", "Perplexity", "Loss", "CustomMetric", "np",
+           "VOCMApMetric", "create", "register"]
 
 _METRIC_REGISTRY = {}
 
@@ -28,7 +32,10 @@ def register(klass, *names):
 
 def create(metric, *args, **kwargs):
     """A metric by name (``"acc"``, ``"top_k_accuracy"``, ``"ce"``, ...), a
-    metric itself, or a list of them as a ``CompositeEvalMetric``."""
+    metric itself, a function ``feval(label, pred)`` (a ``CustomMetric``),
+    or a list of them as a ``CompositeEvalMetric``."""
+    if callable(metric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, (list, tuple)):
@@ -37,8 +44,8 @@ def create(metric, *args, **kwargs):
             composite.add(create(m, *args, **kwargs))
         return composite
     if metric.lower() not in _METRIC_REGISTRY:
-        raise NotImplementedError("metric %r is not ported (ROADMAP A11); ported: %s"
-                                  % (metric, sorted(_METRIC_REGISTRY)))
+        raise ValueError("Metric %s not registered (have %s)"
+                         % (metric, sorted(_METRIC_REGISTRY)))
     return _METRIC_REGISTRY[metric.lower()](*args, **kwargs)
 
 
@@ -176,6 +183,177 @@ class CrossEntropy(EvalMetric):
             self.num_inst += label.shape[0]
 
 
+def _class_counts(label, pred):
+    """Binary labels and predictions (argmax over axis 1 of scores) as int
+    vectors."""
+    label = _as_np(label).flatten().astype(numpy.int32)
+    pred = _as_np(pred)
+    if pred.ndim > 1:
+        pred = numpy.argmax(pred, axis=1)
+    return label, pred.flatten().astype(numpy.int32)
+
+
+class F1(EvalMetric):
+    """Binary F1 of the counts so far (reference metric.py F1)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None, average="macro"):
+        super().__init__(name)
+        self.average = average
+
+    def reset(self):
+        super().reset()
+        self._tp = self._fp = self._fn = 0.0
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label, pred = _class_counts(label, pred)
+            self._tp += ((pred == 1) & (label == 1)).sum()
+            self._fp += ((pred == 1) & (label == 0)).sum()
+            self._fn += ((pred == 0) & (label == 1)).sum()
+            prec = self._tp / max(self._tp + self._fp, 1e-12)
+            rec = self._tp / max(self._tp + self._fn, 1e-12)
+            self.sum_metric = 2 * prec * rec / max(prec + rec, 1e-12)
+            self.num_inst = 1
+
+
+class MCC(EvalMetric):
+    """Matthews correlation coefficient of the counts so far (reference
+    metric.py MCC)."""
+
+    def __init__(self, name="mcc", output_names=None, label_names=None):
+        super().__init__(name)
+
+    def reset(self):
+        super().reset()
+        self._tp = self._fp = self._fn = self._tn = 0.0
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label, pred = _class_counts(label, pred)
+            self._tp += ((pred == 1) & (label == 1)).sum()
+            self._fp += ((pred == 1) & (label == 0)).sum()
+            self._fn += ((pred == 0) & (label == 1)).sum()
+            self._tn += ((pred == 0) & (label == 0)).sum()
+            denom = math.sqrt((self._tp + self._fp) * (self._tp + self._fn)
+                              * (self._tn + self._fp) * (self._tn + self._fn))
+            self.sum_metric = (self._tp * self._tn - self._fp * self._fn) / max(denom, 1e-12)
+            self.num_inst = 1
+
+
+class _RegressionMetric(EvalMetric):
+    """The mean over updates of a per-batch error (1-D inputs as columns)."""
+
+    def __init__(self, name, output_names=None, label_names=None):
+        super().__init__(name)
+
+    def _err(self, label, pred):
+        raise NotImplementedError
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label, pred = _as_np(label), _as_np(pred)
+            if label.ndim == 1:
+                label = label.reshape(label.shape[0], 1)
+            if pred.ndim == 1:
+                pred = pred.reshape(pred.shape[0], 1)
+            self.sum_metric += self._err(label, pred)
+            self.num_inst += 1
+
+
+class MAE(_RegressionMetric):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name)
+
+    def _err(self, label, pred):
+        return numpy.abs(label - pred).mean()
+
+
+class MSE(_RegressionMetric):
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name)
+
+    def _err(self, label, pred):
+        return ((label - pred) ** 2).mean()
+
+
+class RMSE(_RegressionMetric):
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name)
+
+    def _err(self, label, pred):
+        return numpy.sqrt(((label - pred) ** 2).mean())
+
+
+class NegativeLogLikelihood(CrossEntropy):
+    """``CrossEntropy`` named ``nll-loss``."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None, label_names=None):
+        super().__init__(eps=eps, name=name)
+
+
+class PearsonCorrelation(EvalMetric):
+    """The mean over updates of the Pearson correlation of predictions and
+    labels."""
+
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            self.sum_metric += numpy.corrcoef(_as_np(pred).ravel(), _as_np(label).ravel())[0, 1]
+            self.num_inst += 1
+
+
+class Loss(EvalMetric):
+    """The mean of a loss output's elements."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name)
+
+    def update(self, _, preds):
+        for pred in _as_list(preds):
+            loss = _as_np(pred)
+            self.sum_metric += loss.sum()
+            self.num_inst += loss.size
+
+
+class CustomMetric(EvalMetric):
+    """A metric of ``feval(label, pred)`` on numpy arrays, which returns a
+    value or (sum, count) (reference metric.py CustomMetric)."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False, output_names=None,
+                 label_names=None):
+        if name is None:
+            name = feval.__name__ if feval.__name__ != "<lambda>" else "custom"
+        super().__init__("custom(%s)" % name if "(" not in name else name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        if not self._allow_extra_outputs and len(labels) != len(preds):
+            raise ValueError("Shape of labels %d does not match shape of predictions %d"
+                             % (len(labels), len(preds)))
+        for label, pred in zip(labels, preds):
+            reval = self._feval(_as_np(label), _as_np(pred))
+            if isinstance(reval, tuple):
+                self.sum_metric += reval[0]
+                self.num_inst += reval[1]
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A ``CustomMetric`` of a numpy function (reference metric.py np)."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
 class Perplexity(EvalMetric):
     """exp(mean negative log-likelihood) of the labels (reference metric.py
     Perplexity); labels equal to ``ignore_label`` count neither in the sum
@@ -310,8 +488,19 @@ class VOCMApMetric:
         return "mAP", float(numpy.mean(aps)) if aps else 0.0
 
 
+register(TopKAccuracy)
+register(CrossEntropy)
+register(CustomMetric)
+register(NegativeLogLikelihood, "nll_loss")
 register(Accuracy, "acc", "accuracy")
 register(TopKAccuracy, "top_k_accuracy", "top_k_acc")
+register(MSE, "mse")
+register(RMSE, "rmse")
+register(MAE, "mae")
 register(CrossEntropy, "ce", "cross-entropy")
+register(F1, "f1")
+register(MCC, "mcc")
+register(Loss, "loss")
 register(Perplexity, "perplexity")
+register(PearsonCorrelation, "pearsonr")
 register(CompositeEvalMetric, "composite")

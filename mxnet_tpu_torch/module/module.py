@@ -8,7 +8,11 @@ One executor on one device; a batch of another shape re-binds it
 another module's parameter tensors (``BucketingModule``'s buckets).
 ``update`` is one multi-tensor optimizer step over every parameter (``Optimizer.update_multi``: for SGD,
 ``torch._foreach_*`` operations in ``sgd_rule``'s order, the port of the
-JAX package's fused step, ``module/fused_step.py``).  Data parallelism
+JAX package's fused step, ``module/fused_step.py``), also with a
+``KVStore`` of this process given to ``init_optimizer``: in one process
+the store adds nothing to the step, so it holds the executor's own
+parameter tensors and the module's updater, and a push / pull through it
+sees the module's weights and optimizer states.  Data parallelism
 (``mesh=``, ``dist_*`` kvstores) is ROADMAP A10.
 """
 from __future__ import annotations
@@ -35,14 +39,20 @@ def _as_descs(shapes):
 
 class Module(BaseModule):
     """A symbol with its parameters, optimizer and executor on ``device``
-    (None means CUDA, which raises without a card unless ``device="cpu"``)."""
+    (None means CUDA, which raises without a card unless ``device="cpu"``);
+    ``context`` (a Context, such as ``mx.current_context()``) names the
+    device instead."""
 
     def __init__(self, symbol, data_names=("data",), label_names=("softmax_label",),
-                 logger=logging, device=None, mesh=None, fixed_param_names=None):
+                 logger=logging, device=None, mesh=None, fixed_param_names=None,
+                 context=None):
         super().__init__(logger=logger)
         if mesh is not None:
             raise NotImplementedError("Module(mesh=) data parallelism is not ported "
                                       "(ROADMAP A10)")
+        if device is None and context is not None:
+            from ..context import as_device
+            device = as_device(context)
         self._device = resolve_device(device)
         self._fixed_param_names = list(fixed_param_names or [])
         self._symbol = symbol
@@ -61,6 +71,7 @@ class Module(BaseModule):
         self._label_shapes = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
         self._preload_opt_states = None
         self._grad_req = "write"
 
@@ -233,20 +244,25 @@ class Module(BaseModule):
         self.bind(data_shapes, label_shapes, self.for_training, self.inputs_need_grad,
                   force_rebind=True, grad_req=self._grad_req)
         self.params_initialized = params_were_init
+        self._share_params_with_kvstore()
 
     # -- optimizer ----------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd", optimizer_params=None,
                        force_init=False):
         """The optimizer by name (with ``optimizer_params``; ``rescale_grad``
         defaults to 1/batch, as the loss ops' gradients are per sample) or
-        an ``Optimizer``.  One device: ``kvstore`` "local", "device" or None;
-        distributed stores are ROADMAP A10."""
+        an ``Optimizer``.  One device: ``kvstore`` "local", "device", None,
+        or a ``KVStore`` of this process, which then holds the executor's
+        parameters and the module's updater; distributed stores are
+        ROADMAP A10."""
+        from ..kvstore import KVStore
+
         if not (self.binded and self.params_initialized):
             raise RuntimeError("init_optimizer() needs a bound module with parameters")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        if kvstore not in ("local", "device", None):
+        if not isinstance(kvstore, KVStore) and kvstore not in ("local", "device", None):
             raise NotImplementedError("kvstore %r is not ported: one device takes 'local', "
                                       "'device' or None (ROADMAP A10)" % (kvstore,))
         batch_size = self._data_shapes[0].shape[0]
@@ -265,10 +281,22 @@ class Module(BaseModule):
         optimizer.set_wd_mult(getattr(optimizer, "wd_mult", {}) or {})
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+        self._kvstore = None
+        if isinstance(kvstore, KVStore):
+            kvstore.set_updater(self._updater)
+            self._kvstore = kvstore
+            self._share_params_with_kvstore()
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+
+    def _share_params_with_kvstore(self):
+        """Point the store's keys at the executor's parameter tensors (again
+        after a re-bind)."""
+        if self._kvstore is not None:
+            for name in self._param_names:
+                self._kvstore._store[name] = self._exec.arg_dict[name]
 
     # -- compute ------------------------------------------------------------------
     def _stage_batch(self, data_batch):

@@ -15,5 +15,9 @@ from . import misc_ops  # noqa: F401
 from . import detection  # noqa: F401
 from . import rnn  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import linalg  # noqa: F401
+from . import contrib_ops  # noqa: F401
+from . import rcnn_targets  # noqa: F401
+from . import custom  # noqa: F401
 
 _load_all = True

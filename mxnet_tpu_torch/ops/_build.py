@@ -136,6 +136,8 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.mx_nms_scan_global.argtypes = [ctypes.c_int]
+        lib.mx_nms_scan_global.restype = ctypes.c_int
         lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mx_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

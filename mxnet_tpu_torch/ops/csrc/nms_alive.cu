@@ -291,7 +291,21 @@ __global__ void nms_scan_kernel_global(const u64* __restrict__ mask,
   }
 }
 
+// the two mask-row stages of the two-stage scan, in bytes
+size_t two_stage_smem(int words) { return (size_t)(2 * kWord + 2) * words * sizeof(u64); }
+
+// 4 KB: the scan's static shared memory (kept lists, handoffs) beside it
+bool two_stage_fits(int words) {
+  return words <= kScanThreads && two_stage_smem(words) + 4096 <= mx::kSmemMax;
+}
+
 }  // namespace
+
+// 1 when a call over n boxes takes nms_scan_kernel_global, 0 when it takes
+// the two-stage nms_scan_kernel: the rule mx_nms_alive launches by.
+extern "C" int mx_nms_scan_global(int n) {
+  return two_stage_fits((n + kWord - 1) / kWord) ? 0 : 1;
+}
 
 // boxes (B, N, 4) f32, area (B, N) f32, valid (B, N) u8, ids (B, N) f32 or
 // null, mask scratch (B, N, ceil(N / 64)) u64, alive (B, N) u8 out.
@@ -311,12 +325,10 @@ extern "C" int mx_nms_alive(const void* boxes, const void* area,
   const u64* m = static_cast<const u64*>(mask);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   unsigned char* out = static_cast<unsigned char*>(alive);
-  const size_t two_stage = (size_t)(2 * kWord + 2) * words * sizeof(u64);
-  // 4 KB: the scan's static shared memory (kept lists, handoffs) beside it
-  if (words <= kScanThreads && two_stage + 4096 <= mx::kSmemMax) {
-    err = mx::allow_smem(nms_scan_kernel, two_stage);
+  if (two_stage_fits(words)) {
+    err = mx::allow_smem(nms_scan_kernel, two_stage_smem(words));
     if (err != cudaSuccess) return static_cast<int>(err);
-    nms_scan_kernel<<<batch, kScanThreads, two_stage, s>>>(m, v, n, words, out);
+    nms_scan_kernel<<<batch, kScanThreads, two_stage_smem(words), s>>>(m, v, n, words, out);
   } else {
     nms_scan_kernel_global<<<batch, 256, words * sizeof(u64), s>>>(m, v, n, words, out);
   }

@@ -33,7 +33,7 @@ from .registry import register
 __all__ = ["bipartite_matching", "box_iou", "box_nms", "deformable_convolution",
            "deformable_psroi_pooling", "generate_base_anchors", "multi_proposal",
            "multibox_detection", "multibox_prior", "multibox_target", "proposal",
-           "roi_pooling"]
+           "roi_align", "roi_pooling"]
 
 
 def _float_dtype(op, t):
@@ -494,6 +494,87 @@ def roi_pooling(data, rois, *, pooled_size, spatial_scale, rois_per_image=0):
     out = _ROIMax.apply(data, img, hs, he, ws, we).permute(0, 2, 1, 3)
     empty = (he <= hs)[:, None, :, None] | (we <= ws)[:, None, None, :]
     return torch.where(empty, torch.zeros((), dtype=data.dtype, device=data.device), out)
+
+
+# ---------------------------------------------------------------------------
+# ROIAlign (reference src/operator/contrib/roi_align.cc:141-236)
+# ---------------------------------------------------------------------------
+
+
+def _bilinear_at(data, img, y, x):
+    """``data`` (B, C, H, W) sampled at fp32 coordinates ``y``, ``x`` (R, P)
+    of image ``img`` (R,) -> (R, C, P), the JAX op's ``_bilinear``: the
+    coordinates clipped to the map (the reference's snap rule), the far
+    neighbours clamped to its last row and column."""
+    B, C, H, W = data.shape
+    y = _clip(y, 0.0, H - 1.0)
+    x = _clip(x, 0.0, W - 1.0)
+    y0 = torch.floor(y).to(torch.int64)
+    x0 = torch.floor(x).to(torch.int64)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    ly = (y - y0.to(y.dtype))[:, None]
+    lx = (x - x0.to(x.dtype))[:, None]
+    flat = data.reshape(B, C, H * W)
+    rows = img[:, None]
+
+    def at(yi, xi):
+        return flat[rows, :, yi * W + xi].permute(0, 2, 1)   # (R, C, P)
+
+    return (at(y0, x0) * (1 - ly) * (1 - lx) + at(y0, x1) * (1 - ly) * lx
+            + at(y1, x0) * ly * (1 - lx) + at(y1, x1) * ly * lx)
+
+
+@register("_contrib_ROIAlign", alias=["ROIAlign"])
+def roi_align(data, rois, *, pooled_size, spatial_scale, sample_ratio=-1):
+    """The average of bilinear samples in each roi bin (reference
+    roi_align.cc:141; ``mxnet_tpu/ops/detection.py roi_align``): no
+    rounding of the roi, its sides at least 1, a grid of ``sample_ratio``²
+    samples a bin (``ceil(bin size)`` a side when ``sample_ratio`` ≤ 0, on a
+    static grid capped at ``ceil(H / PH) + 1`` with the extra samples
+    masked), a sample counting where it lies in [−1, H] × [−1, W].  The
+    coordinates are fp32, in the JAX op's operation order; (R, C, PH, PW)."""
+    PH, PW = pair(pooled_size)
+    B, C, H, W = data.shape
+    cf = torch.float32
+    dev = data.device
+    rois = rois.to(cf)
+    img = rois[:, 0].to(torch.int64)
+    x1 = rois[:, 1] * spatial_scale
+    y1 = rois[:, 2] * spatial_scale
+    x2 = rois[:, 3] * spatial_scale
+    y2 = rois[:, 4] * spatial_scale
+    one = torch.ones((), dtype=cf, device=dev)
+    roi_w = torch.maximum(x2 - x1, one)
+    roi_h = torch.maximum(y2 - y1, one)
+    bs_h = roi_h / PH
+    bs_w = roi_w / PW
+    if sample_ratio > 0:
+        gh_max = gw_max = int(sample_ratio)
+        grid_h = torch.full_like(roi_h, sample_ratio)
+        grid_w = torch.full_like(roi_w, sample_ratio)
+    else:
+        gh_max = int(math.ceil(H / PH)) + 1
+        gw_max = int(math.ceil(W / PW)) + 1
+        grid_h = _clip(torch.ceil(bs_h), 1, gh_max)
+        grid_w = _clip(torch.ceil(bs_w), 1, gw_max)
+    iy = torch.arange(gh_max, dtype=cf, device=dev)
+    ix = torch.arange(gw_max, dtype=cf, device=dev)
+    R = rois.shape[0]
+    bh, bw, gh, gw = (v[:, None, None] for v in (bs_h, bs_w, grid_h, grid_w))
+    py = (y1[:, None, None] + torch.arange(PH, dtype=cf, device=dev)[None, :, None] * bh
+          + (iy[None, None, :] + 0.5) * bh / gh)                        # (R, PH, gh_max)
+    px = (x1[:, None, None] + torch.arange(PW, dtype=cf, device=dev)[None, :, None] * bw
+          + (ix[None, None, :] + 0.5) * bw / gw)                        # (R, PW, gw_max)
+    my = (iy[None, None, :] < gh) & (py >= -1.0) & (py <= H)
+    mx = (ix[None, None, :] < gw) & (px >= -1.0) & (px <= W)
+    yy = py.reshape(R, PH, gh_max, 1, 1).expand(R, PH, gh_max, PW, gw_max)
+    xx = px.reshape(R, 1, 1, PW, gw_max).expand(R, PH, gh_max, PW, gw_max)
+    v = _bilinear_at(data, img, yy.reshape(R, -1), xx.reshape(R, -1))
+    v = v.reshape(R, C, PH, gh_max, PW, gw_max)
+    m = (my[:, :, :, None, None] & mx[:, None, None, :, :]).to(v.dtype)
+    s = (v * m[:, None]).sum(dim=(3, 5))
+    return (s / (grid_h * grid_w).to(v.dtype)[:, None, None, None]).to(data.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@ import torch
 
 from . import _build
 
-__all__ = ["nms_alive", "nms_alive_plain", "dconv_col", "dconv_col_bf16",
+__all__ = ["nms_alive", "nms_alive_plain", "nms_scan", "dconv_col", "dconv_col_bf16",
            "dconv_col_plain", "dconv_col_bwd", "dconv_col_bwd_bf16",
            "dconv_col_bwd_plain", "channel_major", "DConvCol",
            "psroi_abuild", "psroi_abuild_bf16", "psroi_abuild_plain",
@@ -217,6 +217,13 @@ def nms_alive(boxes, valid, ids=None, *, thresh, plus_one=1.0):
 
 
 nms_alive.launches = 0
+
+
+def nms_scan(n):
+    """The survivor scan an :func:`nms_alive` launch over ``n`` boxes takes:
+    "staged" (two shared-memory stages of mask rows) or "global" (rows read
+    from global memory, for N above ~14,000), by the C entry's own rule."""
+    return "global" if _build.library().mx_nms_scan_global(int(n)) else "staged"
 
 
 # ---------------------------------------------------------------------------

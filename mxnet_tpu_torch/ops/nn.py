@@ -1,6 +1,7 @@
-"""Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``): those
-of the Deformable R-FCN and Faster R-CNN paths, of the ResNet symbol and of
-the Gluon ResNet.  NCHW throughout;
+"""Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``): the
+convolutions, normalizations, pooling, activations, the softmax family, the
+loss heads, upsampling, the spatial transformer and the sequence ops.  NCHW
+throughout;
 plain convolutions and dense layers go to ``torch.nn.functional`` and
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
@@ -18,8 +19,13 @@ import torch.nn.functional as F
 
 from .registry import register
 
-__all__ = ["pair", "convolution", "batch_norm", "pooling", "activation",
-           "dropout", "softmax", "log_softmax", "fully_connected", "softmax_output"]
+__all__ = ["pair", "convolution", "deconvolution", "batch_norm", "layer_norm",
+           "instance_norm", "lrn", "pooling", "adaptive_avg_pooling", "activation",
+           "leaky_relu", "dropout", "softmax", "log_softmax", "softmin",
+           "softmax_activation", "fully_connected", "softmax_output",
+           "linear_regression_output", "mae_regression_output",
+           "logistic_regression_output", "make_loss", "svm_output", "upsampling",
+           "bilinear_sampler", "grid_generator", "spatial_transformer"]
 
 
 def pair(v):
@@ -313,10 +319,34 @@ def softmax(data, *, axis=-1, temperature=None, length=None):
     return e / e.sum(dim=axis, keepdim=True, dtype=torch.float32).to(data.dtype)
 
 
-def log_softmax(data, *, axis=-1):
+def _tempered(data, temperature):
+    """``data / temperature`` (a tensor division), ``data`` at 1 or None."""
+    if temperature in (None, 1.0):
+        return data
+    return data / torch.full((), temperature, dtype=data.dtype, device=data.device)
+
+
+@register("log_softmax")
+def log_softmax(data, *, axis=-1, temperature=None):
     """Log-softmax along ``axis`` (``mxnet_tpu/ops/nn.py log_softmax``, which
     is ``jax.nn.log_softmax``: x − max − log Σ exp(x − max))."""
-    return torch.log_softmax(data, dim=axis)
+    return torch.log_softmax(_tempered(data, temperature), dim=axis)
+
+
+@register("softmin")
+def softmin(data, *, axis=-1, temperature=None):
+    """``softmax(−data)`` (``mxnet_tpu/ops/nn.py softmin``)."""
+    return softmax(-data, axis=axis, temperature=temperature)
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, *, mode="instance"):
+    """The deprecated softmax activation (reference softmax_activation.cc):
+    over axis 1 with ``mode="channel"``, else over each instance's
+    flattened values."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(data.shape)
 
 
 class _SoftmaxOutput(torch.autograd.Function):
@@ -364,7 +394,7 @@ class _SoftmaxOutput(torch.autograd.Function):
         return grad * scale, d_label, None, None, None, None, None, None
 
 
-@register("SoftmaxOutput", infer_params=_softmax_output_label_shape)
+@register("SoftmaxOutput", alias=("Softmax",), infer_params=_softmax_output_label_shape)
 def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0, multi_output=False,
                    use_ignore=False, preserve_shape=False, normalization="null",
                    out_grad=False, smooth_alpha=0.0):
@@ -430,3 +460,366 @@ def sequence_reverse(data, sequence_length=None, *, use_sequence_length=False, a
     rev = torch.where(pos < lengths, lengths - 1 - pos, pos)
     rev = rev.reshape(rev.shape + (1,) * (data.dim() - 2)).expand(data.shape)
     return torch.gather(data, 0, rev)
+
+
+# -- transposed convolution, the normalizations, LRN, adaptive pooling -----------
+
+def _deconv_params(attrs, shapes):
+    g = attrs.get("num_group", 1)
+    nf = attrs["num_filter"]
+    return {"weight": (shapes["data"][1], nf // g) + pair(attrs["kernel"]), "bias": (nf,)}
+
+
+def _deconv_inputs(attrs):
+    # Deconvolution's no_bias defaults to True (reference deconvolution-inl.h)
+    return ["data", "weight"] if attrs.get("no_bias", True) else ["data", "weight", "bias"]
+
+
+@register("Deconvolution", inputs_fn=_deconv_inputs, infer_params=_deconv_params)
+def deconvolution(data, weight, bias=None, *, kernel, num_filter, stride=None, dilate=None,
+                  pad=None, adj=None, target_shape=None, num_group=1, no_bias=True):
+    """Transposed 2-D convolution (reference src/operator/nn/deconvolution.cc;
+    ``mxnet_tpu/ops/nn.py deconvolution``): weight (C_in, num_filter /
+    num_group, kh, kw), the output (H − 1)·stride − 2·pad + dilated kernel
+    + adj, ``adj`` added on the bottom and right.
+
+    ``target_shape`` (h, w), where given and not (0, 0), sets pad and adj
+    as the reference's ``InferPad`` does: the surplus of the natural size
+    over the target, halved (rounded up) for pad, its parity for adj.  The
+    JAX op takes the attribute and ignores it."""
+    k = pair(kernel)
+    s = pair(stride) if stride is not None else (1, 1)
+    d = pair(dilate) if dilate is not None else (1, 1)
+    p = pair(pad) if pad is not None else (0, 0)
+    a = pair(adj) if adj is not None else (0, 0)
+    if target_shape is not None and any(int(t) for t in target_shape):
+        p, a = [], []
+        for i, t in enumerate(pair(target_shape)):
+            surplus = s[i] * (data.shape[2 + i] - 1) + (k[i] - 1) * d[i] + 1 - t
+            if surplus < 0:
+                raise ValueError("Deconvolution: target_shape %s is larger than the "
+                                 "output can be" % (tuple(target_shape),))
+            p.append((surplus + 1) // 2)
+            a.append(surplus % 2)
+    if tuple(weight.shape[2:]) != k or weight.shape[1] * num_group != num_filter:
+        raise ValueError("Deconvolution: weight %s does not match kernel=%s, num_filter=%d, "
+                         "num_group=%d" % (tuple(weight.shape), kernel, num_filter, num_group))
+    return F.conv_transpose2d(data, weight, None if no_bias else bias, stride=s,
+                              padding=tuple(p), output_padding=tuple(a), groups=num_group,
+                              dilation=d)
+
+
+def _ln_params(attrs, shapes):
+    c = shapes["data"][attrs.get("axis", -1) % len(shapes["data"])]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+@register("LayerNorm", infer_params=_ln_params)
+def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5, output_mean_var=False):
+    """Layer normalization over ``axis`` (reference src/operator/nn/
+    layer_norm.cc; ``mxnet_tpu/ops/nn.py layer_norm``): the statistics in
+    fp32, the normalized value cast back to the data's dtype before the
+    affine.  With ``output_mean_var``: (out, mean, var), ``axis`` dropped."""
+    ax = axis % data.dim()
+    x32 = data.to(torch.float32)
+    mean = x32.mean(dim=ax, keepdim=True)
+    var = torch.var(x32, dim=ax, unbiased=False, keepdim=True)
+    norm = ((x32 - mean) / torch.sqrt(var + eps)).to(data.dtype)
+    bshape = [data.shape[ax] if i == ax else 1 for i in range(data.dim())]
+    out = norm * gamma.reshape(bshape) + beta.reshape(bshape)
+    if output_mean_var:
+        return out, mean.squeeze(ax), var.squeeze(ax)
+    return out
+
+
+@register("InstanceNorm", infer_params=lambda attrs, shapes: {"gamma": (shapes["data"][1],),
+                                                              "beta": (shapes["data"][1],)})
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """Instance normalization over each channel's spatial values (reference
+    src/operator/instance_norm.cc), biased variance."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = torch.var(data, dim=red, unbiased=False, keepdim=True)
+    bshape = (1, data.shape[1]) + (1,) * (data.dim() - 2)
+    return (data - mean) / torch.sqrt(var + eps) * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("LRN")
+def lrn(data, *, nsize, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across channels (reference
+    src/operator/nn/lrn.cc; ``mxnet_tpu/ops/nn.py lrn``): the sum of x² over
+    a window of ``nsize`` channels centred on each, zero-padded at the
+    ends, and ``x / (knorm + alpha·Σ / nsize)^beta``.
+    ``F.local_response_norm`` pads its window by another rule
+    (nsize // 2 before, (nsize − 1) // 2 after), so it is not used."""
+    half = nsize // 2
+    padded = F.pad(data * data, (0, 0, 0, 0, half, half))
+    c = data.shape[1]
+    window = padded[:, 0:c]
+    for i in range(1, nsize):
+        window = window + padded[:, i:i + c]
+    return data / torch.pow(knorm + alpha * window / nsize, beta)
+
+
+@register("_contrib_AdaptiveAvgPooling2D")
+def adaptive_avg_pooling(data, *, output_size=(1, 1)):
+    """Adaptive average pooling (reference src/operator/contrib/
+    adaptive_avg_pooling.cc): bin i of n over a length L spans
+    [floor(i·L / n), ceil((i + 1)·L / n)), the JAX op's bins."""
+    return F.adaptive_avg_pool2d(data, pair(output_size))
+
+
+# -- LeakyReLU's activations --------------------------------------------------------
+
+@register("LeakyReLU",
+          inputs_fn=lambda attrs: ["data", "gamma"] if attrs.get("act_type") == "prelu"
+          else ["data"],
+          infer_params=lambda attrs, shapes: {"gamma": (shapes["data"][1],)})
+def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25, lower_bound=0.125,
+               upper_bound=0.334, training=False, generator=None):
+    """leaky, prelu (``gamma`` per channel), elu, selu, gelu (erf) and rrelu
+    (reference src/operator/leaky_relu.cc; ``mxnet_tpu/ops/nn.py
+    leaky_relu``).  rrelu's negative slope is drawn U(lower, upper) per
+    element in training, from ``generator`` (a ``torch.Generator`` on the
+    data's device; the JAX op draws from its ``key``), and is the mean of
+    the bounds otherwise."""
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    if act_type == "leaky":
+        return torch.where(data >= zero, data, slope * data)
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() == 1 and g.dim() < data.dim():
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data >= zero, data, g * data)
+    if act_type == "elu":
+        return torch.where(data >= zero, data, slope * (torch.exp(data) - 1.0))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data >= zero, data, alpha * (torch.exp(data) - 1.0))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        if not training:
+            return torch.where(data >= zero, data, (lower_bound + upper_bound) / 2.0 * data)
+        if generator is None:
+            raise ValueError("LeakyReLU rrelu in training needs a torch.Generator; the "
+                             "global random state is not used")
+        r = torch.empty_like(data).uniform_(lower_bound, upper_bound, generator=generator)
+        return torch.where(data >= zero, data, r * data)
+    raise ValueError("unknown act_type %r" % (act_type,))
+
+
+# -- output heads whose backward is their own rule -----------------------------------
+
+class _OwnGradient(torch.autograd.Function):
+    """``forward_fn(data)`` forward; backward ``grad_fn(out, data, label)``,
+    whatever cotangent arrives (the reference's loss heads), the label a
+    zero gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, forward_fn, grad_fn):
+        out = forward_fn(data)
+        ctx.save_for_backward(out, data, label)
+        ctx.grad_fn = grad_fn
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, data, label = ctx.saved_tensors
+        d_label = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return ctx.grad_fn(out, data, label), d_label, None, None
+
+
+def _own_gradient(data, label, forward_fn, grad_fn):
+    if not torch.is_grad_enabled() or not data.requires_grad:
+        return forward_fn(data)
+    if label is None:
+        label = torch.zeros((), dtype=data.dtype, device=data.device)
+    return _OwnGradient.apply(data, label, forward_fn, grad_fn)
+
+
+def _same_as_data(attrs, shapes):
+    return {"label": tuple(shapes["data"])}
+
+
+def _regression(data, label, grad_scale, kind):
+    """The regression outputs (reference src/operator/regression_output.cc):
+    identity (sigmoid for ``logistic``) forward; backward ``(out − label)``
+    (its sign for ``mae``) times ``grad_scale``."""
+
+    def grad_fn(out, _, lbl):
+        diff = out - lbl.reshape(out.shape)
+        return (torch.sign(diff) if kind == "mae" else diff) * grad_scale
+
+    fwd = torch.sigmoid if kind == "logistic" else (lambda x: x)
+    return _own_gradient(data, label, fwd, grad_fn)
+
+
+@register("LinearRegressionOutput", infer_params=_same_as_data)
+def linear_regression_output(data, label, *, grad_scale=1.0):
+    """Identity forward, ``(out − label)·grad_scale`` backward."""
+    return _regression(data, label, grad_scale, "linear")
+
+
+@register("MAERegressionOutput", infer_params=_same_as_data)
+def mae_regression_output(data, label, *, grad_scale=1.0):
+    """Identity forward, ``sign(out − label)·grad_scale`` backward."""
+    return _regression(data, label, grad_scale, "mae")
+
+
+@register("LogisticRegressionOutput", infer_params=_same_as_data)
+def logistic_regression_output(data, label, *, grad_scale=1.0):
+    """Sigmoid forward, ``(out − label)·grad_scale`` backward."""
+    return _regression(data, label, grad_scale, "logistic")
+
+
+@register("MakeLoss", alias=("make_loss",))
+def make_loss(data, *, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """A tensor as a loss head (reference src/operator/make_loss.cc): identity
+    forward; backward ``grad_scale`` everywhere, divided by the batch with
+    ``normalization="batch"`` and by the element count with ``"valid"``
+    (the JAX op's rule, which reads no ``valid_thresh``)."""
+    scale = grad_scale
+    if normalization == "batch":
+        scale = grad_scale / data.shape[0]
+    elif normalization == "valid":
+        scale = grad_scale / max(math.prod(data.shape), 1)
+    return _own_gradient(data, None, lambda x: x,
+                         lambda out, _, __: torch.full_like(out, scale))
+
+
+@register("SVMOutput")
+def svm_output(data, label, *, margin=1.0, regularization_coefficient=1.0, use_linear=False):
+    """SVM output (reference src/operator/svm_output.cc): identity forward;
+    backward the one-vs-rest hinge of the reference's L1_SVM / L2_SVM
+    kernels (``mxnet_tpu/ops/nn.py svm_output``), c the regularization
+    coefficient: the true class −c·[m > s] (L1) or −2c·(m − s)·[m > s]
+    (L2), every other class +c·[m > −s] or +2c·(m + s)·[m > −s]."""
+    margin, reg = float(margin), float(regularization_coefficient)
+
+    def grad_fn(_, d, lbl):
+        n, c = d.shape
+        is_true = torch.arange(c, device=d.device)[None, :] == \
+            lbl.reshape(n).to(torch.int32)[:, None]
+        s = d.to(torch.float32)
+        zero = s.new_zeros(())
+        if use_linear:
+            grad = torch.where(is_true, -reg * (margin > s).to(torch.float32),
+                               reg * (margin > -s).to(torch.float32))
+        else:
+            grad = torch.where(is_true,
+                               torch.where(margin > s, -2.0 * reg * (margin - s), zero),
+                               torch.where(margin > -s, 2.0 * reg * (margin + s), zero))
+        return grad.to(d.dtype)
+
+    return _own_gradient(data, label, lambda x: x, grad_fn)
+
+
+# -- upsampling and the spatial transformer ------------------------------------------
+
+@register("UpSampling")
+def upsampling(*args, scale, sample_type="nearest", num_args=1, num_filter=0,
+               multi_input_mode="concat"):
+    """Upsampling by an integer ``scale`` (reference src/operator/
+    upsampling.cc).  ``nearest`` repeats each pixel; further inputs are
+    brought to the first's output size and concatenated on the channels
+    (``multi_input_mode="concat"``; the reference's ``"sum"`` is not
+    ported, and the JAX op concatenates in either mode).  ``bilinear`` is
+    the reference's grouped Deconvolution of the first input by the second
+    (the weight, (C, 1, 2s − s % 2, 2s − s % 2))."""
+    data = args[0]
+    if sample_type == "nearest":
+        if multi_input_mode != "concat" and len(args) > 1:
+            raise NotImplementedError("UpSampling: multi_input_mode=%r is not ported"
+                                      % (multi_input_mode,))
+
+        def up(x, s):
+            return x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+
+        outs = [up(data, scale)]
+        for extra in args[1:]:
+            outs.append(up(extra, data.shape[2] * scale // extra.shape[2]))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    if sample_type == "bilinear":
+        k = 2 * scale - scale % 2
+        return deconvolution(data, args[1], None, kernel=(k, k), num_filter=data.shape[1],
+                             stride=(scale, scale), pad=(math.ceil((scale - 1) / 2.0),) * 2,
+                             num_group=data.shape[1], no_bias=True)
+    raise ValueError("UpSampling: unknown sample_type %r" % (sample_type,))
+
+
+def _sample_bilinear(data, gx, gy):
+    """``data`` (N, C, H, W) sampled at pixel coordinates ``gx``, ``gy`` (N,
+    ...) by the JAX op's gather: the four neighbours, each of weight 0 where
+    it lies outside the image."""
+    n, c, h, w = data.shape
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    wx = (gx - x0)[:, None]
+    wy = (gy - y0)[:, None]
+    flat = data.reshape(n, c, h * w)
+
+    def sample(xi, yi):
+        xc = torch.clamp(xi, 0, w - 1).to(torch.int64)
+        yc = torch.clamp(yi, 0, h - 1).to(torch.int64)
+        valid = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)).to(data.dtype)
+        idx = (yc * w + xc).reshape(n, 1, -1).expand(n, c, -1)
+        vals = torch.gather(flat, 2, idx).reshape((n, c) + tuple(gx.shape[1:]))
+        return vals * valid[:, None]
+
+    v00 = sample(x0, y0)
+    v01 = sample(x0 + 1, y0)
+    v10 = sample(x0, y0 + 1)
+    v11 = sample(x0 + 1, y0 + 1)
+    return (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy) + v10 * (1 - wx) * wy
+            + v11 * wx * wy)
+
+
+@register("BilinearSampler")
+def bilinear_sampler(data, grid):
+    """Bilinear sampling of ``data`` (N, C, H, W) at ``grid`` (N, 2, Ho, Wo),
+    x then y in [−1, 1] (reference src/operator/bilinear_sampler.cc;
+    ``mxnet_tpu/ops/nn.py bilinear_sampler``): pixel ``(g + 1)·(W − 1) / 2``,
+    the neighbours outside the image weighing 0.  ``F.grid_sample``'s
+    corner and padding rules differ at the border, so it is not used."""
+    h, w = data.shape[2:]
+    gx = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    return _sample_bilinear(data, gx, gy)
+
+
+@register("GridGenerator")
+def grid_generator(data, *, transform_type, target_shape=(0, 0)):
+    """Sampling grids (reference src/operator/grid_generator.cc): ``affine``
+    maps the target's normalized (x, y, 1) by each (2, 3) matrix of
+    ``data`` (N, 6); ``warp`` adds the flow ``data`` (N, 2, H, W) to the
+    pixel grid and normalizes to [−1, 1]."""
+    if transform_type == "affine":
+        n = data.shape[0]
+        h, w = pair(target_shape)
+        theta = data.reshape(n, 2, 3)
+        ys = torch.linspace(-1.0, 1.0, h, dtype=data.dtype, device=data.device)
+        xs = torch.linspace(-1.0, 1.0, w, dtype=data.dtype, device=data.device)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        coords = torch.stack([gx, gy, torch.ones_like(gx)], dim=0).reshape(3, -1)
+        return torch.matmul(theta, coords).reshape(n, 2, h, w)
+    if transform_type == "warp":
+        h, w = data.shape[2:]
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=data.dtype, device=data.device),
+                                torch.arange(w, dtype=data.dtype, device=data.device),
+                                indexing="ij")
+        x = (data[:, 0] + gx) * 2.0 / max(w - 1, 1) - 1.0
+        y = (data[:, 1] + gy) * 2.0 / max(h - 1, 1) - 1.0
+        return torch.stack([x, y], dim=1)
+    raise ValueError("GridGenerator: unknown transform_type %r" % (transform_type,))
+
+
+@register("SpatialTransformer")
+def spatial_transformer(data, loc, *, target_shape, transform_type="affine",
+                        sampler_type="bilinear"):
+    """A spatial transformer (reference src/operator/spatial_transformer.cc):
+    ``GridGenerator(loc)`` at ``target_shape``, then ``BilinearSampler``."""
+    if sampler_type != "bilinear":
+        raise ValueError("SpatialTransformer: unknown sampler_type %r" % (sampler_type,))
+    grid = grid_generator(loc, transform_type=transform_type, target_shape=target_shape)
+    return bilinear_sampler(data, grid)

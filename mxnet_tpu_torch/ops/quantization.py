@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from . import kernels
 from .kernels import _fdiv
 from .nn import _conv_params, _fc_params, pair, pooling
-from .registry import register
+from .registry import alias, register
 
 __all__ = ["quantize", "dequantize", "requantize", "quantized_conv",
            "quantized_fully_connected", "quantized_pooling",
@@ -305,3 +305,11 @@ def quantized_act(data, min_data, max_data, *, act_type="relu"):
     if data.dtype == torch.uint8:
         raise ValueError("relu on affine uint8 needs the zero point; compute in float")
     return torch.clamp(data, min=0), min_data, max_data
+
+# the JAX registry's short names of the int8 ops
+alias("_contrib_quantize", "quantize")
+alias("_contrib_dequantize", "dequantize")
+alias("_contrib_requantize", "requantize")
+for _name in ("conv", "fully_connected", "pooling", "flatten", "act"):
+    alias("_contrib_quantized_" + _name, "quantized_" + _name)
+del _name

@@ -20,6 +20,7 @@ import torch
 
 from . import kernels
 from .detection import _anchors
+from .registry import register
 
 __all__ = ["rpn_anchor_target", "proposal_target"]
 
@@ -77,16 +78,21 @@ def _rank_select(mask, noise, limit):
     return mask & (rank < limit), order
 
 
-def rpn_anchor_target(gt_boxes, im_info, noise, *, feat_height, feat_width,
+@register("_contrib_rpn_anchor_target")
+def rpn_anchor_target(gt_boxes, im_info, noise=None, *, feat_height, feat_width,
                       feature_stride=16, scales=(8, 16, 32), ratios=(0.5, 1, 2),
-                      batch_rois=256, fg_fraction=0.5):
+                      allowed_border=0, batch_rois=256, fg_fraction=0.5,
+                      pos_iou_thresh=RPN_POS_IOU, neg_iou_thresh=RPN_NEG_IOU):
     """RPN anchor targets (``mxnet_tpu/ops/rcnn_targets.py
     rpn_anchor_target``; reference rcnn/io/rpn.py assign_anchor), at the
     reference config's defaults: IoU thresholds 0.7/0.3 and no border
     allowance (an anchor counts only if it lies wholly inside the image).
 
     gt_boxes (B, G, 5) rows [cls, x1, y1, x2, y2] padded with −1; im_info
-    (B, 3); noise (B, A_total, 2) uniforms driving the fg/bg subsampling.
+    (B, 3); noise (B, A_total, 2) uniforms driving the fg/bg subsampling
+    (None: the lowest anchor indices first, the JAX op's deterministic
+    selection).  An anchor counts if it lies inside the image widened by
+    ``allowed_border``.
     Returns label (B, A_total) in {−1 ignore, 0 bg, 1 fg}, bbox_target and
     bbox_weight (B, A_total, 4), anchors in MultiProposal's order
     ``h·(W·A) + w·A + a``.
@@ -109,9 +115,13 @@ def rpn_anchor_target(gt_boxes, im_info, noise, *, feat_height, feat_width,
                           shift_y[:, None, None].expand(Hf, Wf, A)], dim=-1)
     anchors = (shifts + base[None, None, :, :]).reshape(total, 4)
 
+    if noise is None:
+        noise = (torch.arange(total, dtype=f32, device=dev) / (total + 1.0))[None, :, None] \
+            .expand(B, total, 2)
     im_h, im_w = im_info[:, 0:1], im_info[:, 1:2]
-    inside = ((anchors[None, :, 0] >= 0) & (anchors[None, :, 1] >= 0)
-              & (anchors[None, :, 2] < im_w) & (anchors[None, :, 3] < im_h))  # (B, total)
+    ab = allowed_border
+    inside = ((anchors[None, :, 0] >= -ab) & (anchors[None, :, 1] >= -ab)
+              & (anchors[None, :, 2] < im_w + ab) & (anchors[None, :, 3] < im_h + ab))
     gt_valid = gt_boxes[..., 0] >= 0                                 # (B, G)
     has_gt = (gt_valid.sum(1) > 0)[:, None]                          # (B, 1)
     iou = _iou_plus_one(anchors[None], gt_boxes[..., 1:5])           # (B, total, G)
@@ -119,7 +129,7 @@ def rpn_anchor_target(gt_boxes, im_info, noise, *, feat_height, feat_width,
     argmax = torch.argmax(iou, dim=2)
     max_iou = torch.clamp(iou.max(dim=2).values, min=0.0)
 
-    fg = inside & (max_iou >= RPN_POS_IOU) & has_gt
+    fg = inside & (max_iou >= pos_iou_thresh) & has_gt
     # each valid gt's best anchor is fg; a count, so that two gts sharing
     # a best anchor still mark it
     gt_best = torch.argmax(iou, dim=1)                               # (B, G)
@@ -130,7 +140,7 @@ def rpn_anchor_target(gt_boxes, im_info, noise, *, feat_height, feat_width,
     fg_kept, _ = _rank_select(fg, noise[..., 0], max_fg)
     n_fg = fg_kept.sum(1)
 
-    bg = inside & (max_iou < RPN_NEG_IOU) & ~fg & has_gt
+    bg = inside & (max_iou < neg_iou_thresh) & ~fg & has_gt
     bg = torch.where(has_gt, bg, inside)  # no gt: every inside anchor is bg
     max_bg = batch_rois - torch.clamp(n_fg, max=max_fg)
     bg_kept, _ = _rank_select(bg, noise[..., 1], max_bg)
@@ -143,14 +153,17 @@ def rpn_anchor_target(gt_boxes, im_info, noise, *, feat_height, feat_width,
     return label, tgt * w, w.expand(B, total, 4)
 
 
-def proposal_target(rois, gt_boxes, noise, *, num_classes, batch_images,
-                    batch_rois=128, fg_fraction=0.25, class_agnostic=False,
-                    box_stds=None):
+@register("_contrib_proposal_target")
+def proposal_target(rois, gt_boxes, noise=None, *, num_classes, batch_images,
+                    batch_rois=128, fg_fraction=0.25, fg_overlap=FG_OVERLAP,
+                    class_agnostic=False, box_stds=None):
     """Per-roi training targets (``mxnet_tpu/ops/rcnn_targets.py
     proposal_target``; reference rcnn/symbol/proposal_target.py).
 
     rois (B·post, 5) batch-major; gt_boxes (B, G, 5) padded with −1; noise
-    (B, post + G, 2).  The gt boxes join the candidates.  Returns rois
+    (B, post + G, 2) (None: the lowest candidate indices first).  The gt
+    boxes join the candidates; a roi of IoU ``fg_overlap`` or more is
+    foreground.  Returns rois
     (batch_rois, 5), label (batch_rois,) (0 background, else the gt class
     + 1), bbox_target and bbox_weight (batch_rois, 4·K): the box slot of
     the roi's class among K = ``num_classes`` (background included), or
@@ -169,6 +182,10 @@ def proposal_target(rois, gt_boxes, noise, *, num_classes, batch_images,
     post = rois.shape[0] // B
     G = gt_boxes.shape[1]
     dev = rois.device
+    if noise is None:
+        ncand = post + G
+        noise = (torch.arange(ncand, dtype=torch.float32, device=dev) / (ncand + 1.0)) \
+            [None, :, None].expand(B, ncand, 2)
 
     gt_valid = gt_boxes[..., 0] >= 0                                   # (B, G)
     has_gt = (gt_valid.sum(1) > 0)[:, None]
@@ -183,10 +200,10 @@ def proposal_target(rois, gt_boxes, noise, *, num_classes, batch_images,
     argmax = torch.clamp(torch.argmax(iou, dim=2), 0, G - 1)
     max_iou = torch.clamp(iou.max(dim=2).values, min=0.0)
 
-    fg = cand_valid & (max_iou >= FG_OVERLAP) & has_gt
+    fg = cand_valid & (max_iou >= fg_overlap) & has_gt
     fg_kept, fg_order = _rank_select(fg, noise[..., 0], fg_per_im)
     n_fg = torch.clamp(fg_kept.sum(1), max=fg_per_im)                  # (B,)
-    bg = cand_valid & (max_iou < FG_OVERLAP)
+    bg = cand_valid & (max_iou < fg_overlap)
     bg_kept, bg_order = _rank_select(bg, noise[..., 1], per_im - n_fg)
     n_bg = torch.minimum(bg_kept.sum(1), per_im - n_fg)
 

@@ -10,20 +10,17 @@ The symbolic frontend (``mxnet_tpu_torch.symbol``) builds its ``sym.*``
 functions from these entries, reads the tensor-argument names for
 ``list_arguments``, and infers shapes by running the functions on ``meta``
 tensors; the imperative frontend (``mxnet_tpu_torch.nd``) builds its
-``nd.*`` functions from the same entries.  Registered: the operators of the
-ResNet symbol, the ``bench.py`` Module MLP, Dropout, int8 post-training
-quantization, the SSD, proposal and deformable detection ops, the
-elementwise, reduce, shape, indexing, creation and random groups, the
-fused ``RNN`` op, the sequence ops and the optimizer updates.  An op's
-``alias`` names (``MultiBoxPrior`` for ``_contrib_MultiBoxPrior``) reach
-the same entry.  An op whose tensor inputs are ``*args`` (``Concat``,
+``nd.*`` functions from the same entries.  Registered: every operator of
+the JAX package's registry, under its canonical name and its aliases.  An
+op's ``alias`` names (``MultiBoxPrior`` for ``_contrib_MultiBoxPrior``, or
+added later by :func:`alias`) reach the same entry.  An op whose tensor inputs are ``*args`` (``Concat``,
 ``add_n``) is ``variadic``.
 """
 from __future__ import annotations
 
 import inspect
 
-__all__ = ["OpDef", "register", "get", "exists", "list_ops", "defs"]
+__all__ = ["OpDef", "register", "alias", "get", "exists", "list_ops", "defs"]
 
 _REGISTRY = {}
 
@@ -91,15 +88,22 @@ def register(name, alias=(), aux=(), inputs_fn=None, infer_params=None,
     return _reg
 
 
+def alias(name, *names):
+    """Make each of ``names`` reach the op registered as ``name``."""
+    opdef = get(name)
+    for key in names:
+        if key in _REGISTRY:
+            raise ValueError("duplicate op registration: %s" % key)
+        _REGISTRY[key] = opdef
+
+
 def get(name):
     """The OpDef of ``name``; KeyError for an op the port has not
     registered."""
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise KeyError("Operator %r is not registered in mxnet_tpu_torch "
-                       "(the registry groups not ported yet are ROADMAP A8.4)"
-                       % name) from None
+        raise KeyError("Operator %r is not registered in mxnet_tpu_torch" % name) from None
 
 
 def exists(name):

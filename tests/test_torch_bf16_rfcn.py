@@ -26,6 +26,7 @@ from mxnet_tpu.gluon.model_zoo.detection import DeformableRFCN as JaxRFCN
 from mxnet_tpu.test_utils import load_module_by_path
 from mxnet_tpu_torch import train_fused
 from mxnet_tpu_torch.gluon.model_zoo import DeformableRFCN, load_jax_params
+from xdist_shared import shared
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BF = torch.bfloat16
@@ -115,10 +116,10 @@ def test_serve_forward_after_cast_matches_jax():
     np.testing.assert_allclose(bbox, jbbox, rtol=0, atol=3e-2 * np.abs(jbbox).max())
 
 
-@pytest.fixture(scope="module")
-def steps():
-    """Both sides built once: STEPS bf16 steps of the JAX step under one jit,
-    and of the port's, from the same fp32 weights with the same noise."""
+def _jax_steps():
+    """The JAX side of ``steps``, as numpy: the weights, the batch, each
+    step's noise, the bf16 training forward at the start and STEPS bf16
+    steps of the JAX step under one jit."""
     jtf = load_module_by_path(
         str(ROOT / "examples" / "deformable_rfcn" / "train_fused.py"),
         "_rfcn_train_fused_torch_bf16_parity")
@@ -141,9 +142,9 @@ def steps():
     apply, names, vals, aux_names = functionalize(jnet, train=True)
     aux_set = set(aux_names)
     cast = [v if n in aux_set else v.astype(jnp.bfloat16) for n, v in zip(names, vals)]
-    nz0 = noise(keys[0])
+    noises = [noise(k) for k in keys]
     jout = jax.jit(lambda v, *a: apply(v, a, key)[0])(
-        cast, jnp.asarray(data, jnp.bfloat16), info, gt, *nz0)
+        cast, jnp.asarray(data, jnp.bfloat16), info, gt, *noises[0])
     step, state = jtf.make_rfcn_train_step(jnet, B, learning_rate=5e-4, momentum=0.9,
                                            compute_dtype="bfloat16")
     jstep = jax.jit(step)
@@ -152,17 +153,29 @@ def steps():
         state, _, parts = jstep(state, jnp.asarray(data), jnp.asarray(info),
                                 jnp.asarray(gt), k)
         jparts.append(np.asarray(parts))
+    return dict(params=params, data=np.asarray(data), info=np.asarray(info),
+                gt=np.asarray(gt), noises=noises, jparts=jparts,
+                jstate=tuple([np.asarray(v) for v in part] for part in state),
+                jout=[_np(o) for o in jout])
+
+
+@pytest.fixture(scope="module")
+def steps(tmp_path_factory):
+    """Both sides built once: STEPS bf16 steps of the JAX step under one jit
+    (computed once per test run, ``xdist_shared``), and of the port's, from
+    the same fp32 weights with the same noise."""
+    j = shared(tmp_path_factory, "torch_bf16_rfcn_jax_steps", _jax_steps)
+    params, data, info, gt = j["params"], j["data"], j["info"], j["gt"]
     tnet = load_jax_params(DeformableRFCN(device="cpu", **CFG), params)
     tstep = train_fused.make_rfcn_train_step(tnet, B, learning_rate=5e-4, momentum=0.9,
                                              compute_dtype="bfloat16")
     t = lambda a: torch.from_numpy(np.array(a))
     tout = torch.func.functional_call(
         tnet, {n: p.to(BF) for n, p in tnet.named_parameters()},
-        (t(data).to(BF), t(info), t(gt), *map(t, nz0)))
-    tparts = [tstep(t(data), t(info), t(gt), *map(t, noise(k)))[1].numpy()
-              for k in keys]
-    return dict(jparts=jparts, tparts=tparts, jstate=state, tstep=tstep, tnet=tnet,
-                params=params, jout=[_np(o) for o in jout], tout=[_np(o) for o in tout])
+        (t(data).to(BF), t(info), t(gt), *map(t, j["noises"][0])))
+    tparts = [tstep(t(data), t(info), t(gt), *map(t, nz))[1].numpy() for nz in j["noises"]]
+    return dict(jparts=j["jparts"], tparts=tparts, jstate=j["jstate"], tstep=tstep,
+                tnet=tnet, params=params, jout=j["jout"], tout=[_np(o) for o in tout])
 
 
 def test_bf16_training_forward_samples_the_same_rois(steps):

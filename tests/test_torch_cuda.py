@@ -989,6 +989,14 @@ def test_nms_kernel_on_ssd_inputs(cuda, n, valid_rows):
         assert 0 < int(got.sum()) < int(valid.sum())
 
 
+# the two-stage scan's stages fit shared memory up to 219 words (N 14,016)
+@pytest.mark.parametrize("n,scan", [(6000, "staged"), (8732, "staged"), (12000, "staged"),
+                                    (14016, "staged"), (14017, "global"),
+                                    (24564, "global")])
+def test_nms_scan_rule(cuda, n, scan):
+    assert kernels.nms_scan(n) == scan
+
+
 def test_ssd_ops_launch_the_kernel_and_never_the_plain(cuda, monkeypatch):
     """multibox_detection (per class and forced) and box_nms on the card:
     one nms_alive launch a call for the batch, never the plain version."""

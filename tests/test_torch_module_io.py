@@ -198,8 +198,9 @@ def test_initializer_name_dispatch():
     assert (arr == 0.25).all()
     with pytest.raises(ValueError, match="Unknown initialization pattern"):
         init("mystery", t(2))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tinit.create("orthogonal")
+    assert isinstance(tinit.create("orthogonal"), tinit.Orthogonal)
+    with pytest.raises(ValueError, match="not registered"):
+        tinit.create("mystery")
     assert isinstance(tinit.create("zeros"), tinit.Zero)
 
 
@@ -260,8 +261,9 @@ def test_metrics_match_jax():
         np.testing.assert_allclose(tv, jv, rtol=1e-6)
         tm.reset()
         assert math.isnan(tm.get_name_value()[0][1])
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmetric.create("f1")
+    assert isinstance(tmetric.create("f1"), tmetric.F1)
+    with pytest.raises(ValueError, match="not registered"):
+        tmetric.create("mystery")
 
 
 def test_ndarray_files_cross_packages(tmp_path):

@@ -14,6 +14,7 @@ bits: each is checked for its shape and dtype against the JAX op's
 determinism under ``mx.random.seed``, and for its moments within 4σ over
 10⁴ draws.  Every JAX op runs eagerly (op by op, no ``jit``).
 """
+import functools
 import math
 import zlib
 
@@ -506,3 +507,157 @@ def test_symbol_frontend_builds_the_new_groups():
                      for o in exe.forward(a=x, b=y)])
     for t, j in zip(outs[1], outs[0]):
         np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-6)
+
+
+# -- the rest of the registry: nn, linalg, contrib, misc, ROIAlign, the R-CNN
+# targets and Custom, forward and gradients (mxnet_tpu_torch.test_utils
+# registry_cases: their inputs, attributes and tolerances, shared with
+# chip_smoke.py's registry_ops phase).  The JAX side runs under jax.jit, one
+# compile a case: eager dispatch of these composites costs seconds a case.
+
+from mxnet_tpu_torch.test_utils import register_numpy_softmax, registry_cases  # noqa: E402
+
+CASES = registry_cases()
+register_numpy_softmax(jmx)
+register_numpy_softmax(tmx)
+# its general bins are read to the host (int()), which a trace cannot do
+_EAGER = {"_contrib_AdaptiveAvgPooling2D"}
+
+
+def test_the_registry_is_whole():
+    """Every canonical name of the JAX registry, and every alias, reaches
+    the port's op of the same canonical name; every canonical name of the
+    groups ported here has a case."""
+    for name in jreg.list_ops(include_aliases=True):
+        assert treg.exists(name), name
+        assert treg.get(name).name == jreg.get(name).name, name
+    assert len(treg.defs()) == len(jreg.defs()) == 288
+    assert {c.op for c in CASES.values()} >= {
+        d.name for d in jreg.defs()
+        if d.fn.__module__.rsplit(".", 1)[-1] in ("linalg", "contrib_ops", "custom")}
+
+
+def _outs(res):
+    return list(res) if isinstance(res, (tuple, list)) else [res]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_registry_op_and_gradient_against_jax(case):
+    """Each op's outputs, then the gradient of Σ outputs·cotangents (the
+    cotangents N(0, 1) from the case's seed) with respect to its
+    differentiable inputs, on the same inputs in both packages.  Outputs
+    at the case's rtol / atol; a gradient at its rtol and at atol times its
+    largest magnitude (at least 1): an entry that sums terms of that size
+    carries their rounding."""
+    c = CASES[case]
+    jfn = functools.partial(jreg.get(c.op).fn, **c.attrs)
+    jin = [jnp.asarray(a) for a in c.inputs]
+    tin = [torch.from_numpy(a.copy()) for a in c.inputs]
+    rng = np.random.RandomState(zlib.crc32(("ct" + case).encode()))
+    grads = c.grad and c.op != "MakeLoss"
+
+    def jf(*diff):
+        args = list(jin)
+        for i, d in zip(c.grad, diff):
+            args[i] = d
+        return tuple(_outs(jfn(*args)))
+
+    def both(diff, cts):  # outputs and their vjp in one trace (one compile)
+        out, vjp = jax.vjp(jf, *diff)
+        return out, vjp(cts)
+
+    if grads:
+        shapes = (jf if c.op in _EAGER else functools.partial(jax.eval_shape, jf))(
+            *[jin[i] for i in c.grad])
+        cts = [rng.standard_normal(tuple(sd.shape)).astype(np.float32) for sd in shapes]
+        run = both if c.op in _EAGER else jax.jit(both)
+        ref, jgrads = run([jin[i] for i in c.grad], tuple(jnp.asarray(t) for t in cts))
+    else:
+        ref = jf() if c.op in _EAGER else jax.jit(jf)()
+        cts = [rng.standard_normal(np.shape(r)).astype(np.float32) for r in ref]
+    with tmx.cpu():
+        got = _outs(treg.get(c.op).fn(*tin, **c.attrs))
+    assert len(got) == len(ref), case
+    for g, r in zip(got, ref):
+        g, r = g.detach().numpy(), _np(r)
+        assert g.shape == r.shape, (case, g.shape, r.shape)
+        if c.exact:
+            np.testing.assert_array_equal(g.astype(r.dtype), r, err_msg=case)
+        else:
+            np.testing.assert_allclose(g, r, rtol=c.rtol, atol=c.atol, err_msg=case)
+    if not c.grad:
+        return
+    if c.op == "MakeLoss":
+        # the JAX op's custom_vjp keeps a dtype among its residuals, which
+        # jax.vjp rejects: hold the port against the JAX backward rule itself
+        from mxnet_tpu.ops import nn as jnn
+        jgrads = jnn._make_loss_bwd(c.attrs["grad_scale"], c.attrs["normalization"],
+                                    (jin[0].shape, jin[0].dtype), cts[0])
+    for i in c.grad:
+        tin[i].requires_grad_()
+    with tmx.cpu():
+        outs = _outs(treg.get(c.op).fn(*tin, **c.attrs))
+    tgrads = torch.autograd.grad(outs, [tin[i] for i in c.grad],
+                                 [torch.from_numpy(t) for t in cts], allow_unused=True)
+    for i, tg, jg in zip(c.grad, tgrads, jgrads):
+        tg = np.zeros(c.inputs[i].shape, np.float32) if tg is None else tg.numpy()
+        jg = _np(jg)
+        scale = max(1.0, float(np.abs(jg).max()))
+        np.testing.assert_allclose(tg, jg, rtol=c.rtol, atol=c.atol * scale,
+                                   err_msg="%s d/d input %d" % (case, i))
+
+
+def test_frontends_reach_the_new_ops():
+    """``mx.nd.Custom`` under autograd (the prop's backward, whatever the
+    head gradient), rrelu's training draw from ``mx.random``, and an
+    executor that updates ``IdentityAttachKLSparseReg``'s moving average
+    after a training forward, as the JAX executor does."""
+    rng = np.random.RandomState(3)
+    x = rng.uniform(-2, 2, (4, 5)).astype(np.float32)
+    label = np.array([0, 3, 4, 1], np.float32)
+    with tmx.cpu():
+        data = tmx.nd.array(x)
+        data.attach_grad()
+        with tmx.autograd.record():
+            out = tmx.nd.Custom(data, tmx.nd.array(label), op_type="numpy_softmax")
+        out.backward(tmx.nd.array(np.full((4, 5), 3.0, np.float32)))
+        p = np.exp(x - x.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        np.testing.assert_allclose(out.asnumpy(), p, rtol=1e-6)
+        p[np.arange(4), label.astype(int)] -= 1
+        np.testing.assert_allclose(data.grad.asnumpy(), p, rtol=1e-6)
+        draws = []
+        for _ in range(2):
+            tmx.random.seed(7)
+            with tmx.autograd.record():
+                draws.append(tmx.nd.LeakyReLU(tmx.nd.array(-np.ones(1000, np.float32)),
+                                              act_type="rrelu").asnumpy())
+        assert np.array_equal(draws[0], draws[1])
+        assert 0.125 <= -draws[0].max() and -draws[0].min() <= 0.334
+        assert draws[0].std() > 0.01
+    sym = tmx.sym.IdentityAttachKLSparseReg(tmx.sym.Variable("data"), name="kl", momentum=0.5)
+    exe = sym.simple_bind(device="cpu", data=(4, 3))
+    assert exe.aux_dict["kl_moving_avg"].shape == (3,)
+    exe.aux_dict["kl_moving_avg"].fill_(0.2)
+    act = rng.uniform(0.1, 0.9, (4, 3)).astype(np.float32)
+    exe.forward(is_train=True, data=act)
+    np.testing.assert_allclose(exe.aux_dict["kl_moving_avg"].numpy(),
+                               0.5 * 0.2 + 0.5 * act.mean(0), rtol=1e-6)
+
+
+def test_deconvolution_target_shape_sets_pad_and_adj():
+    """``target_shape`` sets pad and adj by the reference's rule (the surplus
+    over the target halved up for pad, its parity for adj), where the JAX op
+    ignores it and keeps the natural size (ROADMAP §C)."""
+    rng = np.random.RandomState(9)
+    x, w = rng.randn(1, 2, 5, 5).astype(np.float32), rng.randn(2, 3, 3, 3).astype(np.float32)
+    attrs = dict(kernel=(3, 3), num_filter=3, stride=(2, 2))
+    deconv = treg.get("Deconvolution").fn
+    for target, pad, adj in (((10, 11), (1, 0), (1, 0)), ((9, 8), (1, 2), (0, 1))):
+        got = deconv(torch.from_numpy(x), torch.from_numpy(w), target_shape=target, **attrs)
+        assert tuple(got.shape[2:]) == target
+        want = deconv(torch.from_numpy(x), torch.from_numpy(w), pad=pad, adj=adj, **attrs)
+        assert torch.equal(got, want)
+        ref = jreg.get("Deconvolution").fn(jnp.asarray(x), jnp.asarray(w), target_shape=target,
+                                           **attrs)
+        assert ref.shape[2:] == (11, 11)

@@ -310,7 +310,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 *(port / "rnn" / (m + ".py") for m in ("__init__", "rnn_cell", "io", "rnn")),
                 port / "module" / "bucketing_module.py",
                 *(port / "examples" / "rnn" / (m + ".py") for m in (
-                    "__init__", "lstm_bucketing"))):
+                    "__init__", "lstm_bucketing")),
+                *(port / "ops" / (m + ".py") for m in (
+                    "nn", "detection", "linalg", "contrib_ops", "custom")),
+                port / "operator.py", port / "kvstore.py",
+                port / "module" / "python_module.py", port / "module" / "sequential_module.py",
+                *(port / "examples" / "image_classification" / (m + ".py") for m in (
+                    "__init__", "train_imagenet", "train_mnist", "common/__init__",
+                    "common/fit", "common/data", "symbols/__init__", "symbols/alexnet",
+                    "symbols/lenet", "symbols/mlp", "symbols/vgg", "symbols/resnet")),
+                *(port / "examples" / "module" / (m + ".py") for m in (
+                    "__init__", "python_loss"))):
         assert new in files
     for f in files:
         for mod in _imports(f):
